@@ -4,17 +4,20 @@ Each kernel is a plain C shared library built from ``csrc/`` (no PyTorch
 headers, so a build takes seconds) and loaded with :mod:`ctypes`:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -include <build>/lockvm_consts.h \\
-         -o <build>/liblockvm-<hash>.so csrc/lockvm.cu
+         -Xcompiler -fPIC -Xptxas -v -include <build>/<name>_consts.h \\
+         -o <build>/lib<name>-<hash>.so csrc/<name>.cu
 
-The constants the kernel shares with the Python side (opcodes, register
-count, layout, cost indices, ``INF``, the latency-histogram size and the
-fault kinds) are never typed a second time: :func:`constants_header`
-generates them from :mod:`repro_torch.sim.isa`, ``costs``, ``engine`` and
-``faults`` into the build directory.  The library's name carries a hash of
-the sources and that header, so an edit rebuilds and an unchanged tree
-reuses the earlier build.  A failed build raises; nothing falls back to the
-plain engine.
+:data:`KERNELS` names each library, the files under ``csrc/`` it is built
+from, and the generator of the constants header it shares with the Python
+side, so that no constant is typed a second time: the lockVM's opcodes,
+register count, layout, cost indices, ``INF``, histogram size and fault
+kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), and the
+ticket kernel's block size and shared-memory limit
+(:mod:`repro_torch.kernels.ticket_dispatch.kernel`).  A library's name
+carries a hash of its sources and header, so an edit rebuilds and an
+unchanged tree reuses the earlier build.  :func:`load_libraries` starts one
+``nvcc`` per library that is missing, all at once, and waits for them all.
+A failed build raises; nothing falls back to a plain version.
 
 The build directory is ``build/`` at the root of the checkout, or
 ``$REPRO_TORCH_BUILD_DIR`` when set.
@@ -32,7 +35,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-HEADER_NAME = "lockvm_consts.h"
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas resource report (registers, shared memory, spills) of each build
@@ -40,7 +42,8 @@ build_logs: dict[str, str] = {}
 
 
 def constants_header() -> str:
-    """The C header of every constant the kernel takes from the Python side."""
+    """The C header of every constant the lockVM kernel takes from the
+    Python side."""
     from .sim import costs, engine, faults, isa
 
     defs = [(f"OP_{name}", op) for op, name in sorted(isa.OP_NAMES.items())]
@@ -54,10 +57,31 @@ def constants_header() -> str:
     defs += [("INF", engine.INF), ("N_LAT_BUCKETS", engine.N_LAT_BUCKETS),
              ("F_PREEMPT", faults.F_PREEMPT),
              ("F_SPURIOUS", faults.F_SPURIOUS), ("F_ABORT", faults.F_ABORT)]
-    lines = ["// Generated by repro_torch/_build.py from repro_torch.sim "
-             "(isa, costs, engine, faults).", "#pragma once"]
+    return _header("repro_torch.sim (isa, costs, engine, faults)", defs)
+
+
+def ticket_constants_header() -> str:
+    """The C header of the ticket-dispatch kernel's launch constants."""
+    from .kernels.ticket_dispatch import kernel
+
+    return _header("repro_torch.kernels.ticket_dispatch.kernel",
+                   [("TD_THREADS", kernel.THREADS),
+                    ("TD_SMEM_LIMIT", kernel.SMEM_LIMIT)])
+
+
+def _header(origin: str, defs) -> str:
+    lines = [f"// Generated by repro_torch/_build.py from {origin}.",
+             "#pragma once"]
     lines += [f"#define {name} {int(value)}" for name, value in defs]
     return "\n".join(lines) + "\n"
+
+
+# library name -> (files under csrc/, the first one compiled; header maker)
+KERNELS = {
+    "lockvm": (("lockvm.cu", "lockvm_step.cuh"), constants_header),
+    "ticket_dispatch": (("ticket_dispatch.cu", "ticket_dispatch_kernel.cuh"),
+                        ticket_constants_header),
+}
 
 
 def build_dir() -> Path:
@@ -79,9 +103,17 @@ def nvcc_path() -> str:
     return found
 
 
+def _kernel(name: str):
+    try:
+        return KERNELS[name]
+    except KeyError:
+        raise ValueError(f"unknown kernel library {name!r}; "
+                         f"options: {sorted(KERNELS)}") from None
+
+
 def sources(name: str) -> list[Path]:
     """Every file under ``csrc/`` that the kernel ``name`` is built from."""
-    return [CSRC / f"{name}.cu", CSRC / f"{name}_step.cuh"]
+    return [CSRC / f for f in _kernel(name)[0]]
 
 
 def build_command(name: str, out: Path, header: Path,
@@ -89,34 +121,63 @@ def build_command(name: str, out: Path, header: Path,
     return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             "-include", str(header), "-I", str(CSRC),
-            "-o", str(out), str(CSRC / f"{name}.cu")]
+            "-o", str(out), str(sources(name)[0])]
+
+
+def load_libraries(names) -> list[ctypes.CDLL]:
+    """Build every library of ``names`` not built yet (one ``nvcc`` each,
+    run in parallel), then load them all; returns them in order.  Libraries
+    already loaded are returned without touching the file system (a
+    wrapper asks for its library on every launch)."""
+    names = list(names)
+    if all(n in _libs for n in names):
+        return [_libs[n] for n in names]
+    out_dir = build_dir()
+    missing = []
+    for name in dict.fromkeys(n for n in names if n not in _libs):
+        header_text = _kernel(name)[1]()
+        digest = hashlib.sha256(header_text.encode())
+        for path in sources(name):
+            digest.update(path.read_bytes())
+        tag = digest.hexdigest()[:16]
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib_path = out_dir / f"lib{name}-{tag}.so"
+        if lib_path.exists():
+            _libs[name] = ctypes.CDLL(str(lib_path))
+        else:
+            missing.append((name, tag, header_text, lib_path))
+    nvcc = nvcc_path() if missing else None
+    jobs, failed = [], []
+    try:
+        for name, tag, header_text, lib_path in missing:
+            header = out_dir / f"{name}-{tag}-{name}_consts.h"
+            header.write_text(header_text)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = build_command(name, Path(tmp), header, nvcc)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, cmd, proc, tmp, lib_path))
+        for name, cmd, proc, tmp, lib_path in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{log}")
+                continue
+            build_logs[name] = log
+            os.replace(tmp, lib_path)
+            _libs[name] = ctypes.CDLL(str(lib_path))
+    finally:
+        for _, _, proc, _, _ in jobs:   # none outlives an interrupted build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_libs[n] for n in names]
 
 
 def load_library(name: str = "lockvm") -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library ``name``."""
-    if name in _libs:
-        return _libs[name]
-    header_text = constants_header()
-    digest = hashlib.sha256(header_text.encode())
-    for path in sources(name):
-        digest.update(path.read_bytes())
-    tag = digest.hexdigest()[:16]
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"lib{name}-{tag}.so"
-    if not lib_path.exists():
-        header = out_dir / f"{name}-{tag}-{HEADER_NAME}"
-        header.write_text(header_text)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = build_command(name, Path(tmp), header, nvcc_path())
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        build_logs[name] = proc.stdout + proc.stderr
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    _libs[name] = lib
-    return lib
+    return load_libraries([name])[0]

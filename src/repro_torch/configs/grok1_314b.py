@@ -1,0 +1,21 @@
+"""grok-1-314b — MoE decoder, 8 experts top-2.
+[hf:xai-org/grok-1; unverified]"""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="grok-1-314b",
+    family="moe",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=32768,
+    vocab=131072,
+    layer_pattern=("global",),
+    n_experts=8,
+    top_k=2,
+    subquadratic=False,
+    source="hf:xai-org/grok-1",
+)

@@ -47,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import isa
 from .costs import (DEFAULT_COSTS, I_ATOMIC, I_HIT, I_INV, I_LOCAL, I_MISS,
                     I_ST_OWNED, I_ST_SHARED, I_WAKE, I_XFER, Costs)
@@ -743,22 +744,6 @@ def run_cells(program, init_pc, init_regs, init_mem, n_active, seed,
             s = PackedState(*(x[live] for x in s))
             aux = _aux(len(cells), n_threads, program.device)
     return {k: v.to(torch.int32) for k, v in outs.items()}
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    one.  With no GPU and no device given this raises — the entry points
-    never carry on quietly on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch engine on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def choose_mode(device) -> str:

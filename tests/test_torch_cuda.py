@@ -1,16 +1,19 @@
-"""The port's CUDA kernel: its build, its wrapper and its entry points.
+"""The port's CUDA kernels (the lockVM and the MoE ticket dispatch): their
+build, their wrappers and their entry points.
 
-Runs here on the CPU for what does not need a card — the build command and
-the generated constants header, the device rules of the entry points (no
-quiet CPU fallback), the wrapper's plain version on CPU tensors.  The
-kernel-vs-plain cases need a CUDA device: they are marked ``cuda`` and skip
-with "no CUDA device" where there is none.  On a GPU host:
+Runs here on the CPU for what does not need a card — the build commands and
+the generated constants headers, the parallel build, the device rules of
+the entry points (no quiet CPU fallback), the wrapper's plain version on
+CPU tensors.  The kernel-vs-plain cases need a CUDA device: they are marked
+``cuda`` and skip with "no CUDA device" where there is none.  On a GPU host:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance everywhere: bit-identical int32 outputs.
+Tolerance everywhere: bit-identical int32 outputs, and bit-identical tokens
+for the serve run whose MoE layers go through the ticket kernel.
 """
 
+import dataclasses
 import os
 import re
 from pathlib import Path
@@ -21,6 +24,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import _build
+from repro_torch.configs import get_config
+from repro_torch.kernels.ticket_dispatch import assign_slots, dispatch_ref
+from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
+from repro_torch.models.layers import moe_capacity
+from repro_torch.models.model import init_params
+from repro_torch.serve import ServeEngine
 from repro_torch.sim import SIM_LOCKS, SweepSpec, engine, engine_cuda, isa
 from repro_torch.sim import costs, faults, run_sim, sweep_engine_args
 from repro_torch.sim import workloads
@@ -187,6 +196,59 @@ def test_generated_header_matches_the_python_constants():
         assert not re.search(rf"#define\s+{name}\b", src), name
 
 
+def test_ticket_build_command_and_generated_header(tmp_path):
+    header = tmp_path / "h.h"
+    cmd = _build.build_command("ticket_dispatch", tmp_path / "lib.so",
+                               header)
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    csrc = _build.CSRC
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".h"))]
+    assert inputs == [str(header), str(csrc / "ticket_dispatch.cu")]
+    srcs = _build.sources("ticket_dispatch")
+    assert [p.name for p in srcs] == ["ticket_dispatch.cu",
+                                      "ticket_dispatch_kernel.cuh"]
+    for path in srcs:
+        assert path.is_file()
+        for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert (csrc / inc).is_file(), inc
+    defs = {k: int(v) for k, v in re.findall(
+        r"#define (\w+) (-?\d+)", _build.ticket_constants_header())}
+    assert defs == {"TD_THREADS": ticket_kernel.THREADS,
+                    "TD_SMEM_LIMIT": ticket_kernel.SMEM_LIMIT}
+    assert ticket_kernel.THREADS % 32 == 0
+    src = "".join(p.read_text() for p in srcs)
+    for name in defs:
+        assert not re.search(rf"#define\s+{name}\b", src), name
+    with pytest.raises(ValueError, match="unknown kernel"):
+        _build.sources("nope")
+
+
+def test_libraries_build_in_parallel(monkeypatch, tmp_path):
+    """One nvcc per missing library, all started before any is waited on."""
+    log = tmp_path / "log"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo start >> {log}\nsleep 2\necho end >> {log}\n"
+                    'while [ "$1" != "-o" ]; do shift; done; touch "$2"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_logs", {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Path(path))
+    libs = _build.load_libraries(["lockvm", "ticket_dispatch"])
+    assert log.read_text().split() == ["start", "start", "end", "end"]
+    assert [p.name.split("-")[0] for p in libs] == ["liblockvm",
+                                                    "libticket_dispatch"]
+    assert all(p.exists() for p in libs)
+    assert set(_build.build_logs) == {"lockvm", "ticket_dispatch"}
+    # a second call builds nothing: the hashed libraries are reused
+    monkeypatch.setattr(_build, "_libs", {})
+    assert _build.load_libraries(["ticket_dispatch"]) == libs[1:]
+    assert log.read_text().split().count("start") == 2
+
+
 def test_cell_state_bytes_fits_fig3_in_shared_memory():
     mem64 = Layout(n_threads=64, n_locks=1).mem_words
     assert engine_cuda.cell_state_bytes(64, mem64) <= 48 * 1024
@@ -260,3 +322,80 @@ def test_auto_mode_resolves_to_the_kernel(cuda_device):
     assert engine_cuda.state_words_from_kernel(64, 6464, 1) * 4 == \
         engine_cuda.cell_state_bytes(64, 6464, 1)
     assert os.path.exists(_build.build_dir())
+
+
+# ---------------------------------------------------------------------------
+# Ticket-dispatch kernel and the serve path (CUDA device only)
+# ---------------------------------------------------------------------------
+def _ticket_cases():
+    """(ids (G, n), E, capacity): granite-moe's prefill groups (N·K = 8·Lp)
+    and decode group (8 lanes), 16 groups at once, a million arrivals in
+    one group, E from 1 to the shared-memory limit, a skewed draw and ids
+    outside [0, E)."""
+    rng = np.random.default_rng(0)
+
+    def ids(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, size=shape)
+                                .astype(np.int32))
+
+    granite = get_config("granite-moe-1b-a400m")
+    cases = [(ids((1, 8 * lp), 0, 32), 32, moe_capacity(granite, lp))
+             for lp in (16, 128, 512)]
+    cases += [(ids((1, 64), 0, 32), 32, 8), (ids((16, 1024), 0, 32), 32, 40),
+              (ids((1, 1 << 20), 0, 32), 32, 40_960)]
+    cases += [(ids((3, 777), 0, e), e, 64)
+              for e in (1, 5, 8, 100, 128, ticket_kernel.MAX_EXPERTS)]
+    cases += [(torch.full((2, 5000), 7, dtype=torch.int32), 32, 160),
+              (ids((2, 999), -3, 35), 32, 20)]
+    return cases
+
+
+@pytest.mark.cuda
+def test_ticket_kernel_matches_plain(cuda_device):
+    for ids, n_experts, capacity in _ticket_cases():
+        d_ids = ids.to(cuda_device)
+        before = ticket_kernel.launches
+        t, s = ticket_kernel.ticket_dispatch(d_ids, n_experts, capacity)
+        torch.cuda.synchronize()
+        assert ticket_kernel.launches == before + 1
+        p_t, p_s = dispatch_ref(d_ids, n_experts, capacity, grouped=True)
+        assert torch.equal(t, p_t), (tuple(ids.shape), n_experts)
+        assert torch.equal(s, p_s), (tuple(ids.shape), n_experts)
+        c_t, c_s = dispatch_ref(ids, n_experts, capacity, grouped=True)
+        assert torch.equal(t.cpu(), c_t) and torch.equal(s.cpu(), c_s)
+    # the public op: auto launches, torch does not
+    ids = torch.randint(0, 8, (4, 16, 2), dtype=torch.int32,
+                        device=cuda_device)
+    before = ticket_kernel.launches
+    a = assign_slots(ids, 8, 6, grouped=True)
+    b = assign_slots(ids, 8, 6, grouped=True, mode="torch")
+    assert ticket_kernel.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_two_layer_granite_serve_kernel_matches_plain_dispatch(cuda_device):
+    """Full-width granite-moe cut to two layers, bf16 on the card: the
+    tokens with the ticket kernel equal the tokens with the plain version,
+    bit for bit, and every MoE layer launched the kernel once per pass."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(16, 120)))
+               .tolist() for _ in range(6)]
+    out = {}
+    for dispatch in ("auto", "torch"):
+        eng = ServeEngine(cfg, params, lanes=4, max_ctx=160,
+                          device=cuda_device, dispatch=dispatch)
+        before = ticket_kernel.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run()
+        launched = ticket_kernel.launches - before
+        assert launched == (cfg.n_layers * (eng.prefill_count
+                                            + eng.step_count)
+                            if dispatch == "auto" else 0)
+        out[dispatch] = [r.tokens_out for r in reqs]
+        assert all(len(t) == 8 for t in out[dispatch])
+    assert out["auto"] == out["torch"]

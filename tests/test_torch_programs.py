@@ -189,7 +189,8 @@ def test_fault_schedules_match():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch``, ``repro_torch.sim`` and everything ``chip_smoke``
+    """``repro_torch``, its subpackages (the lockVM, core, configs, kernels,
+    models, serve and the serve launcher) and everything ``chip_smoke``
     imports load without JAX or any ``repro`` module."""
     code = textwrap.dedent("""
         import importlib.util, sys
@@ -197,6 +198,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch, repro_torch.sim, repro_torch._build
         import repro_torch.sim.engine_cuda, repro_torch.sim.corpus
         import repro_torch.bench.fig3_mutexbench
+        import repro_torch.core, repro_torch.configs, repro_torch.kernels
+        import repro_torch.kernels.ticket_dispatch.kernel
+        import repro_torch.models.model, repro_torch.serve
+        import repro_torch.launch.serve
+        repro_torch._build.ticket_constants_header()
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
