@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card — the lockVM sweep behind the
-paper's fig3, and serving granite-moe-1b-a400m at full width through the
-ticket-FIFO ``ServeEngine`` — through the entry points a user calls, and
+Drives the port's three paths on the card — the lockVM sweep behind the
+paper's fig3, serving granite-moe-1b-a400m at full width through the
+ticket-FIFO ``ServeEngine``, and serving falcon-mamba-7b at full width
+through the same engine — through the entry points a user calls, and
 checks them:
 
-1. card and build: the card's name and power limit; ``csrc/lockvm.cu`` and
-   ``csrc/ticket_dispatch.cu`` built with ``nvcc`` for ``sm_90a`` from the
-   checkout, both at once.
+1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
+   ``csrc/ticket_dispatch.cu`` and ``csrc/mamba_scan.cu`` built with
+   ``nvcc`` for ``sm_90a`` from the checkout, all at once.
 2. kernel vs plain: the lockVM kernel (``mode="cuda"``) against the plain
    PyTorch engine on the card, bit-identical on all eight output stats, on
    the 14 ``tests/corpus`` entries, a fault sweep (preemptions, spurious
@@ -31,6 +32,18 @@ checks them:
    second run with ``dispatch="torch"`` must give the same tokens, bit for
    bit.  A reduced float32 model on the card agrees with the same model on
    the CPU.
+7. scan kernel vs plain: the selective-scan kernel against the plain loop
+   on float32 casts of its inputs, within 1e-5 (float32 inputs) and 5e-2
+   (bf16), at falcon-mamba-7b's full-width prefill shape and small, ragged,
+   batched, h0-threaded and mixed-dtype cases.
+8. serve_mamba: the same traffic on falcon-mamba-7b at full width (64
+   layers, d 4,096, bf16, random weights from a seeded generator): every
+   prefill goes through the scan kernel once per layer, decode through
+   none.  A second run with ``scan="torch"`` (the plain loop, whose state
+   is bf16 where the kernel's is float32) must give the same first token
+   wherever its top-2 margin exceeds twice the largest first-token logit
+   difference.  A reduced float32 model on the card agrees with the same
+   model on the CPU.
 
 Each phase prints one JSON line.  Before the last line come the kernel
 table (a JSON object with key ``kernels``) and the ``nvidia-smi`` name and
@@ -55,8 +68,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-# The serve phase: granite-moe-1b-a400m at full width, its traffic.
+# The serve phases: granite-moe-1b-a400m and falcon-mamba-7b at full width,
+# on one traffic.
 SERVE_ARCH = "granite-moe-1b-a400m"
+MAMBA_ARCH = "falcon-mamba-7b"
 SERVE_REQUESTS = 16
 SERVE_PROMPT = (16, 256)       # prompt lengths drawn in [16, 256]
 SERVE_NEW = 32
@@ -134,9 +149,9 @@ def compare(name: str, args, n_locks: int, engine, engine_cuda) -> dict:
 
 
 def bound_ms(nbytes_moved: int, n_ops: int) -> tuple[float, str]:
-    """Least time for the work: bytes over HBM bandwidth, or one 32-bit
-    operation per unit of work (an executed event, an arrival's counter
-    step) over the scalar peak — the larger."""
+    """Least time for the work: bytes over HBM bandwidth, or its 32-bit
+    operations (one per executed event or arrival's counter step; seven per
+    scan element) over the scalar peak — the larger."""
     t_bytes = nbytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -228,66 +243,107 @@ def ticket_phase(dev, kernel, ref, moe_capacity, cfg) -> dict:
             "timed": timed}
 
 
-def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
-    """Serve SERVE_REQUESTS requests at full width, first through the
-    ticket kernel (``dispatch="auto"``), then with ``dispatch="torch"``;
-    the tokens must be equal."""
+def serve_prompts(cfg) -> list:
+    """The serve traffic's prompts: SERVE_REQUESTS seeded draws of
+    SERVE_PROMPT lengths."""
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(
+    return [rng.integers(1, cfg.vocab, size=int(rng.integers(
         SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))).tolist()
         for _ in range(SERVE_REQUESTS)]
 
-    def run(dispatch, prompts, max_new):
-        eng = ServeEngine(cfg, params, lanes=SERVE_LANES, max_ctx=SERVE_CTX,
-                          device=dev, dispatch=dispatch)
-        prefill_s = []
-        admit = eng._admit
 
-        def timed_admit(lane, req):
-            t = time.perf_counter()
-            admit(lane, req)
-            torch.cuda.synchronize()
-            prefill_s.append(time.perf_counter() - t)
+def timed_serve(ServeEngine, cfg, params, dev, prompts, max_new, kernel,
+                **modes) -> dict:
+    """One engine run over ``prompts`` with the kernel modes ``modes``:
+    the engine, its requests, the wall time, each prefill's seconds and
+    kernel launches, the launches of the whole run and each request's
+    first-token logits (float32, on the host)."""
+    eng = ServeEngine(cfg, params, lanes=SERVE_LANES, max_ctx=SERVE_CTX,
+                      device=dev, **modes)
+    prefill_s, prefill_launches, first = [], [], []
+    admit, sample = eng._admit, eng._sample
 
-        eng._admit = timed_admit
-        reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    def timed_admit(lane, req):
+        t, n = time.perf_counter(), kernel.launches
+        admit(lane, req)
         torch.cuda.synchronize()
-        kernel.launches = 0
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return eng, reqs, wall, prefill_s, kernel.launches
+        prefill_s.append(time.perf_counter() - t)
+        prefill_launches.append(kernel.launches - n)
 
+    def recorded_sample(logits):
+        if logits.shape[0] == 1:                   # a prefill's first token
+            first.append(logits[0].float().cpu())
+        return sample(logits)
+
+    eng._admit, eng._sample = timed_admit, recorded_sample
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    torch.cuda.synchronize()
+    kernel.launches = 0
     t0 = time.perf_counter()
-    for dispatch in ("auto", "torch"):  # warm-up: allocator, GEMM plans
-        run(dispatch, prompts, 2)
-    torch.cuda.reset_peak_memory_stats()
-    eng, reqs, wall, prefill_s, launches = run("auto", prompts, SERVE_NEW)
-    peak = torch.cuda.max_memory_allocated()
-    tokens = [r.tokens_out for r in reqs]
-    assert [r.ticket for r in reqs] == list(range(SERVE_REQUESTS))
+    eng.run()
+    torch.cuda.synchronize()
+    return {"eng": eng, "reqs": reqs, "wall": time.perf_counter() - t0,
+            "prefill_s": prefill_s, "prefill_launches": prefill_launches,
+            "launches": kernel.launches, "first_logits": first}
+
+
+def check_served(run: dict, cfg, n_requests: int) -> None:
+    """FIFO admission, every request done with SERVE_NEW in-range tokens,
+    a finite first-token logit row each."""
+    eng, reqs = run["eng"], run["reqs"]
+    assert [r.ticket for r in reqs] == list(range(n_requests))
     for r in reqs:
         assert r.done.is_set() and len(r.tokens_out) == SERVE_NEW, r.rid
         assert all(0 <= t < cfg.vocab for t in r.tokens_out), r.rid
     adm = [r.admitted_at_step for r in reqs]
     assert adm == sorted(adm), adm                   # admitted in ticket order
-    assert eng.prefill_count == SERVE_REQUESTS
+    assert eng.prefill_count == n_requests
+    assert len(run["first_logits"]) == n_requests
+    for row in run["first_logits"]:
+        assert bool(torch.isfinite(row[:cfg.vocab]).all())
+
+
+def serve_times(run: dict) -> dict:
+    """Tokens/s, prefill ms per request and decode ms per step of a run."""
+    n_tok = sum(len(r.tokens_out) for r in run["reqs"])
+    prefill = sum(run["prefill_s"])
+    return {"wall_s": run["wall"], "tokens_per_s": n_tok / run["wall"],
+            "prefill_ms_per_request": 1e3 * prefill / len(run["prefill_s"]),
+            "decode_ms_per_step":
+                1e3 * (run["wall"] - prefill) / run["eng"].step_count}
+
+
+def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
+    """Serve SERVE_REQUESTS requests at full width, first through the
+    ticket kernel (``dispatch="auto"``), then with ``dispatch="torch"``;
+    the tokens must be equal."""
+    prompts = serve_prompts(cfg)
+
+    def run(dispatch, max_new):
+        return timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
+                           kernel, dispatch=dispatch)
+
+    t0 = time.perf_counter()
+    for dispatch in ("auto", "torch"):  # warm-up: allocator, GEMM plans
+        run(dispatch, 2)
+    torch.cuda.reset_peak_memory_stats()
+    auto = run("auto", SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    eng, launches = auto["eng"], auto["launches"]
+    check_served(auto, cfg, SERVE_REQUESTS)
     want = cfg.n_layers * (eng.prefill_count + eng.step_count)
     assert launches == want, (launches, want)
     stats = eng.stats()
-    p_eng, p_reqs, p_wall, p_prefill_s, p_launches = run("torch", prompts,
-                                                         SERVE_NEW)
-    assert p_launches == 0, p_launches
-    p_tokens = [r.tokens_out for r in p_reqs]
+    plain = run("torch", SERVE_NEW)
+    assert plain["launches"] == 0, plain["launches"]
+    tokens = [r.tokens_out for r in auto["reqs"]]
+    p_tokens = [r.tokens_out for r in plain["reqs"]]
     if p_tokens != tokens:
         bad = [i for i, (a, b) in enumerate(zip(tokens, p_tokens)) if a != b]
         raise AssertionError(f"tokens with the ticket kernel differ from "
                              f"dispatch='torch' on requests {bad}")
-    assert p_eng.step_count == eng.step_count
-    n_tok = sum(len(t) for t in tokens)
-    decode_s = wall - sum(prefill_s)
-    p_decode_s = p_wall - sum(p_prefill_s)
+    assert plain["eng"].step_count == eng.step_count
+    times, p_times = serve_times(auto), serve_times(plain)
     return {"phase": "serve", "entry": "repro_torch.serve.ServeEngine",
             "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "experts": cfg.n_experts,
@@ -298,16 +354,81 @@ def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
             "lanes": SERVE_LANES, "max_ctx": SERVE_CTX, "gate": stats["lock"],
             "prefills": eng.prefill_count, "decode_steps": eng.step_count,
             "ticket_launches": launches, "tokens_bit_identical": True,
-            "wall_s": wall, "tokens_per_s": n_tok / wall,
-            "prefill_ms_per_request": 1e3 * sum(prefill_s) / len(prefill_s),
-            "prefill_ms": [1e3 * t for t in prefill_s],
-            "decode_ms_per_step": 1e3 * decode_s / eng.step_count,
-            "plain_dispatch": {
-                "wall_s": p_wall,
-                "prefill_ms_per_request":
-                    1e3 * sum(p_prefill_s) / len(p_prefill_s),
-                "decode_ms_per_step": 1e3 * p_decode_s / p_eng.step_count},
+            **times, "prefill_ms": [1e3 * t for t in auto["prefill_s"]],
+            "plain_dispatch": {k: p_times[k] for k in (
+                "wall_s", "prefill_ms_per_request", "decode_ms_per_step")},
             "peak_memory_bytes": peak,
+            "admission": {k: v for k, v in stats.items() if k != "lock"},
+            "seconds": time.perf_counter() - t0}
+
+
+def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
+    """Serve the same traffic on falcon-mamba-7b at full width through the
+    scan kernel (``scan="auto"``): each prefill launches it once per layer,
+    decode never.  Then the same prompts with ``scan="torch"``, the plain
+    loop in bf16: its first token must agree wherever its top-2 margin
+    exceeds twice the largest first-token logit difference (the kernel
+    keeps h in float32, the plain loop in bf16, so tokens may part where
+    logits nearly tie)."""
+    prompts = serve_prompts(cfg)
+
+    def run(scan, max_new):
+        return timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
+                           kernel, scan=scan)
+
+    t0 = time.perf_counter()
+    run("auto", 2)                      # warm-up: allocator, GEMM plans
+    torch.cuda.reset_peak_memory_stats()
+    auto = run("auto", SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    eng = auto["eng"]
+    check_served(auto, cfg, SERVE_REQUESTS)
+    assert auto["prefill_launches"] == [cfg.n_layers] * SERVE_REQUESTS, \
+        auto["prefill_launches"]
+    # every launch came from a prefill: decode launched none
+    assert auto["launches"] == sum(auto["prefill_launches"]) \
+        == cfg.n_layers * SERVE_REQUESTS, auto["launches"]
+    stats = eng.stats()
+    t_plain = time.perf_counter()
+    plain = run("torch", SERVE_NEW)
+    plain_s = time.perf_counter() - t_plain
+    assert plain["launches"] == 0, plain["launches"]
+    check_served(plain, cfg, SERVE_REQUESTS)
+    diffs = [float((a - b)[:cfg.vocab].abs().max())
+             for a, b in zip(auto["first_logits"], plain["first_logits"])]
+    delta = max(diffs)
+    decided, agree = 0, 0
+    for a_req, p_req, row in zip(auto["reqs"], plain["reqs"],
+                                 plain["first_logits"]):
+        top2 = torch.topk(row[:cfg.vocab], 2).values
+        if float(top2[0] - top2[1]) > 2 * delta:
+            decided += 1
+            assert a_req.tokens_out[0] == p_req.tokens_out[0], a_req.rid
+        agree += a_req.tokens_out[0] == p_req.tokens_out[0]
+    streams = sum(a.tokens_out == b.tokens_out
+                  for a, b in zip(auto["reqs"], plain["reqs"]))
+    times, p_times = serve_times(auto), serve_times(plain)
+    return {"phase": "serve_mamba", "entry": "repro_torch.serve.ServeEngine",
+            "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+            "ssm_state": cfg.ssm_state, "vocab": cfg.vocab,
+            "params": sum(v.numel() for v in _leaves(params)),
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+            "prompt_lengths": [len(p) for p in prompts],
+            "lanes": SERVE_LANES, "max_ctx": SERVE_CTX, "gate": stats["lock"],
+            "prefills": eng.prefill_count, "decode_steps": eng.step_count,
+            "scan_launches": auto["launches"], "decode_scan_launches": 0,
+            **times, "prefill_ms": [1e3 * t for t in auto["prefill_s"]],
+            "peak_memory_bytes": peak,
+            "plain_scan": {"requests": SERVE_REQUESTS, "seconds": plain_s,
+                           **{k: p_times[k] for k in (
+                               "wall_s", "prefill_ms_per_request",
+                               "decode_ms_per_step")}},
+            "first_logit_max_abs_diff": delta,
+            "first_logit_max_abs_diff_per_request": diffs,
+            "first_tokens_decided_by_margin": decided,
+            "first_tokens_equal": int(agree),
+            "token_streams_equal": int(streams),
             "admission": {k: v for k, v in stats.items() if k != "lock"},
             "seconds": time.perf_counter() - t0}
 
@@ -323,53 +444,169 @@ def _leaves(params):
         yield params["lm_head"]
 
 
-def small_model_phase(dev, cfg, model, kernel) -> dict:
-    """A reduced float32 model on the card (ticket kernel) against the same
-    weights on the CPU (plain dispatch): prefill logits and one decode
-    step.  Tolerance rtol = atol = 1e-4: float32 sums run in another order
-    on the card (TF32 is off)."""
+def _to(tree, dev):
+    """A parameter or cache tree with every tensor moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def small_model_phase(dev, cfg, model, kernel, launches_per_pass) -> dict:
+    """A reduced float32 model on the card (its kernel) against the same
+    weights on the CPU (plain versions): prefill logits and two decode
+    steps, the kernel launched ``launches_per_pass[i]`` times in pass i.
+    Tolerance rtol = atol = 1e-4: float32 sums run in another order on the
+    card (TF32 is off)."""
     params = model.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
-    on_card = {"embed": params["embed"].to(dev),
-               "final_norm": params["final_norm"].to(dev),
-               "stack": {j: {k: v.to(dev) for k, v in slot.items()}
-                         for j, slot in params["stack"].items()},
-               "tail": [{k: v.to(dev) for k, v in layer.items()}
-                        for layer in params["tail"]]}
+    on_card = _to(params, dev)
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         1, cfg.vocab, size=(2, 40)))
-    step = torch.tensor([[5], [9]])
-    pos = torch.tensor([40, 17])
+    steps = [(torch.tensor([[5], [9]]), torch.tensor([40, 17])),
+             (torch.tensor([[7], [11]]), torch.tensor([41, 18]))]
 
     def grow(cache):
-        """The prefill cache with room for 40 more positions."""
-        def more(v, dim):
+        """The prefill cache with room for 40 more positions in its
+        sequence leaves (keys and values); state leaves stay as they are."""
+        def more(k, v, dim):
+            if k not in ("k", "v"):
+                return v
             return torch.cat([v, torch.zeros_like(v)], dim=dim)
-        return {"stack": {j: {k: more(v, 2) for k, v in slot.items()}
+        return {"stack": {j: {k: more(k, v, 2) for k, v in slot.items()}
                           for j, slot in cache["stack"].items()},
-                "tail": [{k: more(v, 1) for k, v in layer.items()}
+                "tail": [{k: more(k, v, 1) for k, v in layer.items()}
                          for layer in cache["tail"]]}
 
-    def prefill_and_step(p, device):
+    def prefill_and_steps(p, device):
+        counts = []
+        n = kernel.launches
         logits, _, cache = model.forward(p, {"tokens": tokens.to(device)},
                                          cfg, collect_cache=True)
-        d_logits, _ = model.decode_step(p, grow(cache), step.to(device),
-                                        pos.to(device), cfg)
-        return logits.cpu(), d_logits.cpu()
+        outs = [logits.cpu()]
+        counts.append(kernel.launches - n)
+        cache = grow(cache)
+        for tok, pos in steps:
+            n = kernel.launches
+            d_logits, cache = model.decode_step(p, cache, tok.to(device),
+                                                pos.to(device), cfg)
+            outs.append(d_logits.cpu())
+            counts.append(kernel.launches - n)
+        return outs, counts
 
-    kernel.launches = 0
-    card = prefill_and_step(on_card, dev)
-    launches = kernel.launches
-    assert launches == 2 * cfg.n_layers, launches
-    host = prefill_and_step(params, torch.device("cpu"))
+    card, launches = prefill_and_steps(on_card, dev)
+    assert launches == list(launches_per_pass), launches
+    host, host_launches = prefill_and_steps(params, torch.device("cpu"))
+    assert host_launches == [0, 0, 0], host_launches
     errs = []
     for a, b in zip(card, host):
         assert torch.isfinite(a[..., :cfg.vocab]).all()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
         errs.append(float((a - b).abs()[..., :cfg.vocab].max()))
     return {"arch": cfg.name + " reduced", "dtype": cfg.dtype,
-            "tolerance": "rtol=atol=1e-4 vs the CPU", "max_abs_err": errs,
-            "ticket_launches": launches}
+            "tolerance": "rtol=atol=1e-4 vs the CPU",
+            "passes": ["prefill", "decode", "decode"], "max_abs_err": errs,
+            "launches": launches}
+
+
+def scan_cases(dev) -> list:
+    """(name, float32 inputs on the card, dtype) of the scan check:
+    falcon-mamba-7b's full-width prefill (L 256, D 8,192, N 16) in bf16 and
+    float32, the reference tests' shapes, L 1 and 33, D 20, N 4 and 8, a
+    batch of 2 with h0 shared and per sequence, and mixed dtypes (float32
+    A and D_skip, bf16 rest)."""
+    rng = np.random.default_rng(21)
+
+    def draw(L, D, N, lead=(), per_seq=False, h0=False):
+        own = lead if per_seq else ()
+        arrays = [rng.normal(size=lead + (L, D)),
+                  rng.uniform(0.01, 0.2, size=lead + (L, D)),
+                  -rng.uniform(0.5, 2.0, size=own + (D, N)),
+                  rng.normal(size=lead + (L, N)),
+                  rng.normal(size=lead + (L, N)), rng.normal(size=own + (D,)),
+                  rng.normal(size=own + (D, N)) if h0 else None]
+        return [None if a is None else torch.from_numpy(
+            a.astype(np.float32)).to(dev) for a in arrays]
+
+    cases = [("prefill_L256_D8192_N16_bf16", draw(256, 8192, 16), "bf16"),
+             ("prefill_L256_D8192_N16_f32", draw(256, 8192, 16), "f32")]
+    cases += [(f"L{L}_D{D}_N{N}_{dt}", draw(L, D, N), dt)
+              for L, D, N, dt in ((16, 8, 4, "f32"), (100, 96, 16, "f32"),
+                                  (256, 128, 16, "f32"), (33, 20, 8, "f32"),
+                                  (64, 64, 16, "bf16"), (1, 40, 16, "f32"),
+                                  (1, 8192, 16, "bf16"), (33, 40, 16, "bf16"),
+                                  (70, 20, 4, "f32"), (70, 20, 8, "f32"))]
+    cases += [("batch2_h0_shared", draw(40, 24, 8, (2,), h0=True), "f32"),
+              ("batch2_h0_per_seq", draw(40, 24, 8, (2,), True, True),
+               "bf16"),
+              ("mixed_dtypes", draw(50, 30, 16), "mixed")]
+    return cases
+
+
+def as_dtype(args, dtype: str) -> list:
+    """The inputs all in ``dtype`` ("f32", "bf16"), or bf16 with float32 A
+    and D_skip ("mixed")."""
+    return [None if a is None else
+            a.to(torch.bfloat16) if dtype == "bf16" or (
+                dtype == "mixed" and i not in (2, 5)) else a
+            for i, a in enumerate(args)]
+
+
+def scan_phase(dev, kernel, ref) -> dict:
+    """The scan kernel against the plain loop on float32 casts of its
+    inputs (rtol = atol = 1e-5 for float32 inputs, 5e-2 otherwise), the
+    h0 threading, and its time and bound at the full-width prefill."""
+    t0 = time.perf_counter()
+    sets = []
+    cases = scan_cases(dev)
+    for name, f32_args, dtype in cases:
+        args = as_dtype(f32_args, dtype)
+        y, h = kernel.selective_scan(*args)
+        torch.cuda.synchronize()
+        assert y.dtype == h.dtype == args[0].dtype, name
+        ry, rh = ref.selective_scan_ref(*(None if a is None else a.float()
+                                          for a in args))
+        tol = 1e-5 if dtype == "f32" else 5e-2
+        for got, want in ((y, ry), (h, rh)):
+            assert bool(torch.isfinite(got).all()), name
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                       msg=name)
+        sets.append({"set": name, "shape": list(args[0].shape),
+                     "N": args[2].shape[-1], "dtype": dtype,
+                     "tolerance": tol,
+                     "max_abs_err": max(float((y.float() - ry).abs().max()),
+                                        float((h.float() - rh).abs().max()))})
+    # h0 threads through: two halves equal one scan (float32, L 100)
+    x, dt, A, B, C, Dsk, _ = cases[3][1]
+    y_full, h_full = ref.selective_scan_ref(x, dt, A, B, C, Dsk)
+    y_a, h_a = kernel.selective_scan(x[:37], dt[:37], A, B[:37], C[:37],
+                                     Dsk)
+    y_b, h_b = kernel.selective_scan(x[37:], dt[37:], A, B[37:], C[37:],
+                                     Dsk, h_a)
+    torch.testing.assert_close(torch.cat([y_a, y_b]), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h_b, h_full, rtol=1e-5, atol=1e-5)
+    sets.append({"set": "two_halves_L100", "tolerance": 1e-5,
+                 "max_abs_err": max(
+                     float((torch.cat([y_a, y_b]) - y_full).abs().max()),
+                     float((h_b - h_full).abs().max()))})
+    # time and bound at the full-width prefill, bf16 as the serve runs it
+    args = as_dtype(cases[0][1], "bf16")[:6]
+    ms = launch_ms(lambda: kernel.selective_scan(*args))
+    plain_ms = launch_ms(lambda: ref.selective_scan_ref(*args), launches=3,
+                         repeats=3)
+    L, D = args[0].shape
+    N = args[2].shape[-1]
+    out = kernel.selective_scan(*args)
+    bound, bound_by = bound_ms(nbytes(args) + nbytes(out),
+                               7 * L * D * N + 2 * L * D)
+    return {"phase": "scan_kernel_vs_plain",
+            "tolerance": "rtol=atol=1e-5 (float32 inputs), 5e-2 (bf16)",
+            "seconds": time.perf_counter() - t0, "sets": sets,
+            "timed": {"shape": [L, D, N], "dtype": "bf16", "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": bound_by}}
 
 
 def check_claims(by: dict) -> None:
@@ -409,6 +646,8 @@ def main() -> int:
     from repro_torch import _build
     from repro_torch import sim
     from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
     from repro_torch.kernels.ticket_dispatch import ref as ticket_ref
     from repro_torch.models import model
@@ -439,11 +678,12 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.load_libraries(["lockvm", "ticket_dispatch"])
+    libraries = ["lockvm", "ticket_dispatch", "mamba_scan"]
+    _build.load_libraries(libraries)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "")
                     .splitlines() if "registers" in ln or "spill" in ln]
-             for name in ("lockvm", "ticket_dispatch")}
+             for name in libraries}
     assert ticket_kernel.smem_bytes_from_kernel(32) == \
         ticket_kernel.smem_bytes(32)
     n_fig3_threads = max(FIG3_THREADS)
@@ -563,9 +803,30 @@ def main() -> int:
     served = serve_phase(dev, cfg, params, ServeEngine, ticket_kernel)
     serve_launches = served["ticket_launches"]
     served["init_params_s"] = init_s
-    served["small_model"] = small_model_phase(dev, cfg.reduced(), model,
-                                              ticket_kernel)
+    small = cfg.reduced()
+    served["small_model"] = small_model_phase(
+        dev, small, model, ticket_kernel, [small.n_layers] * 3)
     emit(served)
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # ---- 7. the scan kernel against its plain version
+    scan = scan_phase(dev, scan_kernel, scan_ref)
+    emit(scan)
+
+    # ---- 8. serve falcon-mamba-7b at full width
+    t0 = time.perf_counter()
+    mcfg = get_config(MAMBA_ARCH)
+    params = model.init_params(mcfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mamba = serve_mamba_phase(dev, mcfg, params, ServeEngine, scan_kernel)
+    mamba["init_params_s"] = init_s
+    small = mcfg.reduced()
+    mamba["small_model"] = small_model_phase(dev, small, model, scan_kernel,
+                                             [small.n_layers, 0, 0])
+    emit(mamba)
     del params
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
@@ -594,7 +855,18 @@ def main() -> int:
         "timed_on": f"decode group: {dec['arrivals']} arrivals, "
                     f"E={dec['E']}",
         "prefill_Lp256_ms": pre["ms"], "prefill_Lp256_plain_ms":
-            pre["plain_ms"], "prefill_Lp256_bound_ms": pre["bound_ms"]}]}))
+            pre["plain_ms"], "prefill_Lp256_bound_ms": pre["bound_ms"]}, {
+        "name": "mamba_scan_run", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:94",
+        "launches": mamba["scan_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in scan["sets"]),
+        "max_abs_err_float32": max(c["max_abs_err"] for c in scan["sets"]
+                                   if c["tolerance"] == 1e-5),
+        "ms": scan["timed"]["ms"], "plain_ms": scan["timed"]["plain_ms"],
+        "bound_ms": scan["timed"]["bound_ms"],
+        "bound_by": scan["timed"]["bound_by"], "library_ms": None,
+        "timed_on": "falcon-mamba-7b prefill: L 256, D 8192, N 16, bf16"}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

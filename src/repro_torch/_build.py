@@ -11,9 +11,11 @@ headers, so a build takes seconds) and loaded with :mod:`ctypes`:
 from, and the generator of the constants header it shares with the Python
 side, so that no constant is typed a second time: the lockVM's opcodes,
 register count, layout, cost indices, ``INF``, histogram size and fault
-kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), and the
+kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), the
 ticket kernel's block size and shared-memory limit
-(:mod:`repro_torch.kernels.ticket_dispatch.kernel`).  A library's name
+(:mod:`repro_torch.kernels.ticket_dispatch.kernel`), and the selective
+scan's block size, chunk, state sizes and input dtype bits
+(:mod:`repro_torch.kernels.mamba_scan.kernel`).  A library's name
 carries a hash of its sources and header, so an edit rebuilds and an
 unchanged tree reuses the earlier build.  :func:`load_libraries` starts one
 ``nvcc`` per library that is missing, all at once, and waits for them all.
@@ -69,6 +71,19 @@ def ticket_constants_header() -> str:
                     ("TD_SMEM_LIMIT", kernel.SMEM_LIMIT)])
 
 
+def mamba_constants_header() -> str:
+    """The C header of the selective-scan kernel's launch constants."""
+    from .kernels.mamba_scan import kernel
+
+    return _header("repro_torch.kernels.mamba_scan.kernel",
+                   [("MS_THREADS", kernel.THREADS),
+                    ("MS_CHUNK", kernel.CHUNK),
+                    ("MS_MIN_N", min(kernel.STATE_SIZES)),
+                    ("MS_MAX_N", max(kernel.STATE_SIZES))]
+                   + [(f"MS_BF16_{name.upper()}", bit)
+                      for name, bit in kernel.BF16_BITS.items()])
+
+
 def _header(origin: str, defs) -> str:
     lines = [f"// Generated by repro_torch/_build.py from {origin}.",
              "#pragma once"]
@@ -81,6 +96,8 @@ KERNELS = {
     "lockvm": (("lockvm.cu", "lockvm_step.cuh"), constants_header),
     "ticket_dispatch": (("ticket_dispatch.cu", "ticket_dispatch_kernel.cuh"),
                         ticket_constants_header),
+    "mamba_scan": (("mamba_scan.cu", "mamba_scan_kernel.cuh"),
+                   mamba_constants_header),
 }
 
 

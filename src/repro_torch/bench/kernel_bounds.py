@@ -1,5 +1,8 @@
-"""Least time one H100 SXM could take for the work of the two TPU kernels
-not ported yet, at the shapes their serve paths give them.
+"""Least time one H100 SXM could take for the work of the two recurrent
+scans, at the shapes their serve paths give them: the Mamba-1 selective
+scan, ported as ``csrc/mamba_scan.cu`` (``chip_smoke.py`` computes the same
+bound from its own inputs beside the kernel's time), and the RG-LRU scan,
+still to port.
 
     PYTHONPATH=src python -m repro_torch.bench.kernel_bounds
 
@@ -13,7 +16,8 @@ per sequence, in the configs' bf16:
 * the Mamba-1 selective scan (reference ``repro/kernels/mamba_scan``), per
   (t, d, n) ``exp(dt·A)``, ``dt·x·B``, the update of h and its product
   with C — seven operations; inputs x, dt (L, D), A (D, N), B, C (L, N),
-  D_skip (D,), h0 (D, N); outputs y (L, D) and h (D, N);
+  D_skip (D,) — a prefill starts from a zero state, so no h0 is read;
+  outputs y (L, D) and h (D, N);
 * the RG-LRU scan (reference ``repro/kernels/rglru``), per (t, d) one
   multiply-add; inputs a, b (L, D), h0 (D,); outputs y (L, D), h (D,).
 """
@@ -37,7 +41,7 @@ def bound_ms(nbytes: int, n_ops: int) -> tuple[float, str]:
 
 
 def mamba_scan(L: int, D: int, N: int) -> dict:
-    nbytes = ELEM * (3 * L * D + 3 * D * N + 2 * L * N + D)
+    nbytes = ELEM * (3 * L * D + 2 * D * N + 2 * L * N + D)
     return _row("_scan_kernel", f"L={L} D={D} N={N}", nbytes,
                 7 * L * D * N + 2 * L * D)
 

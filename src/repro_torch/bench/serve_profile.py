@@ -1,19 +1,24 @@
 """Where the serve path's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.bench.serve_profile [--out DIR]
+    PYTHONPATH=src python -m repro_torch.bench.serve_profile [--arch NAME] [--out DIR]
 
-Two measurements, each printed as one JSON line:
+``--arch`` names the model served (``granite-moe-1b-a400m`` unless given;
+``falcon-mamba-7b`` the Mamba path).  Up to two measurements, each printed
+as one JSON line:
 
 * ``ticket_call``: the host's cost of one call of the ticket-dispatch
   wrapper at the decode group's shape (64 arrivals, 32 experts) against
   the raw library call on preallocated outputs, ``torch.empty_like`` and
   one small PyTorch op, each timed over many calls without synchronising
-  (the enqueue cost), and the kernel's device time from ``torch.profiler``.
-* ``serve``: granite-moe-1b-a400m at full width (random bf16 weights from
-  a seed) serving 8 requests of 64-256 prompt tokens and 8 new tokens on 8
-  lanes, with ``torch.profiler`` over the run after a warm-up: wall time
-  of prefill and decode, the device's busy time (the sum of its kernels'
-  times) and the ops that take the most host and device time.
+  (the enqueue cost), and the kernel's device time from ``torch.profiler``;
+  only for a model with experts.
+* ``serve``: the model at full width (random bf16 weights from a seed)
+  serving 8 requests of 64-256 prompt tokens and 8 new tokens on 8 lanes,
+  with ``torch.profiler`` over the run after a warm-up: wall time of
+  prefill and decode, the device's busy time (the sum of its kernels'
+  times) and idle share, the host's kernel launches per model pass, the
+  port's own kernels' device times, and the ops that take the most host
+  and device time.
 
 With ``--out`` the profiler tables go to files in DIR.  Needs one CUDA
 device.
@@ -55,6 +60,11 @@ def host_us(fn, n: int = 2000) -> float:
 
 
 SPANS = ("serve.prefill", "serve.step")
+# the runtime calls that launch a kernel, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                "cuLaunchKernel")
+# the port's kernels, by the name of their __global__ function
+PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel")
 
 
 def _device_events(prof):
@@ -117,8 +127,8 @@ def ticket_call(dev, out_dir: Path | None) -> dict:
     return row
 
 
-def serve(dev, out_dir: Path | None) -> dict:
-    cfg = get_config("granite-moe-1b-a400m")
+def serve(dev, out_dir: Path | None, arch: str) -> dict:
+    cfg = get_config(arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
     rng = np.random.default_rng(0)
@@ -168,14 +178,20 @@ def serve(dev, out_dir: Path | None) -> dict:
     prefill_s = timed.get("serve.prefill", 0.0) + timed.get(
         "serve.prefill_in_step", 0.0)
     decode_s = timed["serve.step"] - timed.get("serve.prefill_in_step", 0.0)
-    kernel_us, kernel_n = _device_us(prof, "ticket_dispatch_kernel")
+    port_kernels = {}
+    for name in PORT_KERNELS:
+        us, n = _device_us(prof, name)
+        if n:
+            port_kernels[name] = {"device_us_mean": us, "count": n}
+    launch_calls = sum(1 for e in prof.events() if e.name in LAUNCH_CALLS)
+    passes = eng.prefill_count + eng.step_count
     avg = prof.key_averages()
     top_dev = sorted(by_kernel.items(), key=lambda kv: kv[1],
                      reverse=True)[:8]
     top_cpu = sorted((e for e in avg if e.key not in SPANS),
                      key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     if out_dir is not None:
-        (out_dir / "serve_profile.txt").write_text(
+        (out_dir / f"serve_profile_{cfg.name}.txt").write_text(
             avg.table(sort_by="self_cpu_time_total", row_limit=40)
             + "\n\n" + avg.table(sort_by="self_cuda_time_total",
                                  row_limit=25))
@@ -186,8 +202,9 @@ def serve(dev, out_dir: Path | None) -> dict:
             "decode_ms_per_step": 1e3 * decode_s / eng.step_count,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "ticket_kernel_device_us": kernel_us,
-            "ticket_kernel_count": kernel_n,
+            "passes": passes, "launch_calls": launch_calls,
+            "launches_per_pass": launch_calls / passes,
+            "port_kernels": port_kernels,
             "top_device_kernels_ms": {name[:80]: us / 1e3
                                       for name, us in top_dev},
             "top_host_ops_ms": {e.key: e.self_cpu_time_total / 1e3
@@ -196,12 +213,16 @@ def serve(dev, out_dir: Path | None) -> dict:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    rows = [ticket_call(dev, args.out), serve(dev, args.out)]
+    rows = []
+    if get_config(args.arch).n_experts:
+        rows.append(ticket_call(dev, args.out))
+    rows.append(serve(dev, args.out, args.arch))
     for row in rows:
         print(json.dumps(row), flush=True)
     return rows

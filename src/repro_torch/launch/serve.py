@@ -9,6 +9,9 @@ On the CPU with a reduced config::
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-1b-a400m --reduced --device cpu
 
+Any ported decoder serves the same way: ``--arch falcon-mamba-7b`` is the
+Mamba-1 stack, whose prefills run the selective-scan kernel on the GPU.
+
 The flags and the printout are the reference's (``repro.launch.serve``),
 plus ``--device``; weights are random, drawn from ``--seed``.
 """

@@ -1,17 +1,19 @@
-"""Layer kinds of the attention and MoE decoders: norms, RoPE, GQA
-attention (full, chunked, one-token decode against a KV cache), gated MLP
-and MoE with ticket dispatch.
+"""Layer kinds of the attention, MoE and Mamba decoders: norms, RoPE, GQA
+attention (full, chunked, one-token decode against a KV cache), gated MLP,
+MoE with ticket dispatch, and the Mamba-1 mixer with its one-token decode.
 
 A port of the reference's ``repro/models/layers.py`` for the layer kinds
-the serve path of granite-moe-1b-a400m and deepseek-7b reaches.  The
-functions keep its layouts: x (B, S, D); ``wq`` (D, H, hd), ``wk``/``wv``
-(D, KV, hd), ``wo`` (H, hd, D); experts' ``wi``/``wg`` (E, D, ff) and
-``wo`` (E, ff, D); KV caches (B, S, KV, hd).  Computation follows x's
-dtype; softmax and logit reductions run in float32 and are cast back where
-the reference casts.  Every product is ``torch.einsum``/``matmul``, as the
-reference leaves them to XLA; the one kernel is the ticket dispatch inside
-:func:`moe`.  The reference's sharding constraints have no counterpart on
-one card and are dropped.
+the serve paths of granite-moe-1b-a400m, deepseek-7b and falcon-mamba-7b
+reach.  The functions keep its layouts: x (B, S, D); ``wq`` (D, H, hd),
+``wk``/``wv`` (D, KV, hd), ``wo`` (H, hd, D); experts' ``wi``/``wg``
+(E, D, ff) and ``wo`` (E, ff, D); KV caches (B, S, KV, hd); the Mamba
+state (B, d_inner, N) and conv tail (B, kw-1, d_inner).  Computation
+follows x's dtype; softmax and logit reductions run in float32 and are
+cast back where the reference casts.  Every product is
+``torch.einsum``/``matmul``, as the reference leaves them to XLA; the
+kernels are the ticket dispatch inside :func:`moe` and the selective scan
+inside :func:`mamba_block`.  The reference's sharding constraints have no
+counterpart on one card and are dropped.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.ticket_dispatch.ops import dispatch_combine_plan
 
 NEG_INF = -1e30   # the reference's mask value
@@ -302,3 +305,83 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
                     torch.zeros((), dtype=gathered.dtype,
                                 device=x.device)).sum(dim=2)
     return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block
+# ---------------------------------------------------------------------------
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) everywhere (``F.softplus``
+    turns into the identity above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _ssm_inputs(p, xin, cfg: ArchConfig):
+    """dt (softplus'd), B and C of the selective scan from the conv'd
+    input (B, S, d_inner)."""
+    dtr, N = cfg.dt_rank, cfg.ssm_state
+    proj = torch.einsum("bsd,dk->bsk", xin, p["x_proj"])       # (B,S,dtr+2N)
+    dt_in, Bm, Cm = proj.split([dtr, N, N], dim=-1)
+    dt = softplus(torch.einsum("bsk,kd->bsd", dt_in, p["dt_proj"])
+                  + p["dt_bias"])
+    return dt, Bm, Cm
+
+
+def _ssm_A(p, dtype):
+    """A = -exp(A_log) from the float32 ``A_log``, cast to x's dtype as the
+    reference casts it."""
+    return (-torch.exp(p["A_log"].float())).to(dtype)
+
+
+def mamba_block(p, x, cfg: ArchConfig, scan: str = "auto"):
+    """Mamba-1 mixer over (B, S, D); returns (y, (h_final, conv_tail)).
+
+    The depthwise causal conv pads kw-1 zeros in front, and its tail (the
+    decode state) is the last kw-1 rows of the padded input, so a prompt
+    shorter than kw-1 leaves zeros in it.  ``scan`` is the selective-scan
+    mode (:func:`repro_torch.kernels.mamba_scan.ops.selective_scan`:
+    ``"auto"`` the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors; ``"torch"`` the plain version); the batch is one launch where
+    the reference maps ``vmap`` over it.
+    """
+    B, S, D = x.shape
+    kw = cfg.ssm_conv
+    xz = torch.einsum("bsd,dk->bsk", x, p["in_proj"])           # (B,S,2di)
+    xin, z = xz.chunk(2, dim=-1)
+
+    # depthwise causal conv1d, width ssm_conv: stacked shifted views
+    xpad = F.pad(xin, (0, 0, kw - 1, 0))
+    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=-1)
+    conv = torch.einsum("bsdk,dk->bsd", shifted, p["conv_w"]) + p["conv_b"]
+    xin = F.silu(conv)
+
+    dt, Bm, Cm = _ssm_inputs(p, xin, cfg)
+    y, h_final = selective_scan(xin, dt, _ssm_A(p, xin.dtype), Bm, Cm,
+                                p["D_skip"], mode=scan)
+    y = y * F.silu(z)
+    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    conv_tail = xpad[:, S:] if kw == 1 else xpad[:, -(kw - 1):]
+    return out, (h_final, conv_tail)
+
+
+def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
+    """One-token Mamba step, plain PyTorch as in the reference (no scan
+    kernel).  x (B, 1, D); ssm_state (B, d_inner, N); conv_state
+    (B, kw-1, d_inner).  Returns (y, new_ssm, new_conv); the states are
+    new tensors (the caller writes them into its cache)."""
+    xz = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
+    xin, z = xz.chunk(2, dim=-1)                                # (B,1,di)
+    window = torch.cat([conv_state, xin], dim=1)                # (B,kw,di)
+    conv = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
+    xin1 = F.silu(conv)[:, None, :]                             # (B,1,di)
+    dt, Bm, Cm = _ssm_inputs(p, xin1, cfg)
+    dt = dt[:, 0]                                               # (B,di)
+    A = _ssm_A(p, x.dtype)
+    dA = torch.exp(dt[..., None] * A[None])                     # (B,di,N)
+    dBx = (dt * xin1[:, 0])[..., None] * Bm[:, 0][:, None, :]
+    new_ssm = dA * ssm_state + dBx
+    y = (new_ssm * Cm[:, 0][:, None, :]).sum(-1) + p["D_skip"] * xin1[:, 0]
+    y = (y * F.silu(z[:, 0]))[:, None, :]
+    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    return out, new_ssm, window[:, 1:]

@@ -1,18 +1,20 @@
 """Model builder: parameter init, forward, prefill and one-token decode with
-a KV cache, for the attention decoders (dense and MoE).
+a KV or SSM cache, for the attention decoders (dense and MoE) and the
+Mamba-1 stack.
 
-A port of the reference's ``repro/models/model.py`` for layer kind
-``global``.  Parameters keep the reference's tree so that the two packages
-can compute with the same weights (:func:`params_from_numpy`):
+A port of the reference's ``repro/models/model.py`` for layer kinds
+``global`` and ``mamba``.  Parameters keep the reference's tree so that the
+two packages can compute with the same weights (:func:`params_from_numpy`):
 ``{"embed", "final_norm", "stack": {"slot<j>": {name: (P, ...)}},
 "tail": [{name: ...}], "lm_head"?}`` with the layers of each slot of the
 layer pattern stacked over the P periods.  The reference scans over
 periods; here a Python loop walks them, indexing the stacked tensors.
-Caches keep the same tree, with (P, B, S_ctx, KV, hd) leaves.
+Caches keep the same tree: (P, B, S_ctx, KV, hd) ``k``/``v`` leaves for
+attention layers, (P, B, d_inner, N) ``ssm`` and (P, B, kw-1, d_inner)
+``conv`` leaves for Mamba layers.
 
-Layer kinds ``mamba``, ``rglru`` and ``local`` and the vision and audio
-frontends raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+Layer kinds ``rglru`` and ``local`` and the vision and audio frontends
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -22,11 +24,10 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from . import layers as L
 
 _NOT_PORTED = {
-    "mamba": "kernel 3 (the Mamba selective scan) with the Mamba block, its "
-             "decode and falcon-mamba-7b serving",
     "rglru": "kernel 4 (the RG-LRU scan) with the RG-LRU block, its decode "
              "and recurrentgemma-9b serving",
     "local": "kernel 4 with attention_local (sliding-window attention) and "
@@ -39,7 +40,7 @@ def _require_ported(kind: str, cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
             f"ROADMAP, {_NOT_PORTED[kind]}")
-    if kind != "global":
+    if kind not in ("global", "mamba"):
         raise ValueError(kind)
 
 
@@ -79,50 +80,93 @@ def _attn_layer_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
+def _mamba_layer_shapes(cfg: ArchConfig) -> dict:
+    """Name -> (shape, init) of one Mamba layer.  Inits beside the random
+    normals are the reference's: ``A_log`` = log(1..N) in float32 whatever
+    the config's dtype (``"a_log"``), ``D_skip`` ones, ``dt_bias`` -4.6
+    (softplus⁻¹(0.01)), ``conv_b`` and ``ln1`` zeros."""
+    d, di, N, dtr, kw = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                         cfg.dt_rank, cfg.ssm_conv)
+    return {"ln1": ((d,), "zeros"), "in_proj": ((d, 2 * di), "normal"),
+            "conv_w": ((di, kw), "normal"), "conv_b": ((di,), "zeros"),
+            "A_log": ((di, N), "a_log"),
+            "x_proj": ((di, dtr + 2 * N), "normal"),
+            "dt_proj": ((dtr, di), "normal"), "dt_bias": ((di,), "dt_bias"),
+            "D_skip": ((di,), "ones"), "out_proj": ((di, d), "normal")}
+
+
+def _layer_shapes(kind: str, cfg: ArchConfig) -> dict:
+    return (_mamba_layer_shapes(cfg) if kind == "mamba"
+            else _attn_layer_shapes(cfg))
+
+
+def _param_layout(cfg: ArchConfig) -> dict:
+    """The parameter tree with (shape, init) leaves; stacked leaves lead
+    with P."""
+    _check_ported(cfg)
+    P = cfg.n_periods
+    tree = {"embed": ((cfg.padded_vocab, cfg.d_model), "normal"),
+            "final_norm": ((cfg.d_model,), "zeros"),
+            "stack": ({f"slot{j}": {k: ((P,) + s, init) for k, (s, init)
+                                    in _layer_shapes(kind, cfg).items()}
+                       for j, kind in enumerate(cfg.layer_pattern)}
+                      if P else {}),
+            "tail": [_layer_shapes(kind, cfg) for kind in cfg.tail_kinds]}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ((cfg.d_model, cfg.padded_vocab), "normal")
+    return tree
+
+
+def _build_tree(layout: dict, fn) -> dict:
+    """The tree of ``layout`` with each leaf replaced by
+    ``fn(path, shape, init)``, built in the layout's order (the order
+    :func:`init_params` draws in)."""
+    out = {}
+    for key, node in layout.items():
+        if key == "stack":
+            out[key] = {j: {k: fn(f"stack/{j}/{k}", *leaf)
+                            for k, leaf in slot.items()}
+                        for j, slot in node.items()}
+        elif key == "tail":
+            out[key] = [{k: fn(f"tail/{i}/{k}", *leaf)
+                         for k, leaf in layer.items()}
+                        for i, layer in enumerate(node)]
+        else:
+            out[key] = fn(key, *node)
+    return out
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
     """The parameter tree's shapes (stacked leaves lead with P)."""
-    _check_ported(cfg)
-    layer = {k: s for k, (s, _) in _attn_layer_shapes(cfg).items()}
-    P = cfg.n_periods
-    tree = {"embed": (cfg.padded_vocab, cfg.d_model),
-            "final_norm": (cfg.d_model,),
-            "stack": ({f"slot{j}": {k: (P,) + s for k, s in layer.items()}
-                       for j in range(cfg.period)} if P else {}),
-            "tail": [dict(layer) for _ in cfg.tail_kinds]}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = (cfg.d_model, cfg.padded_vocab)
-    return tree
+    return _build_tree(_param_layout(cfg), lambda path, shape, init: shape)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                 device=None) -> dict:
-    """Random parameters with the reference's shapes and scales (normal ×
-    0.02, norms at zero), drawn from ``generator`` on ``device`` (``cuda``
-    unless named; it must be the generator's device).  The values are not
-    the reference's: its ``jax.random`` keys draw other numbers."""
+    """Random parameters with the reference's shapes, scales and constant
+    inits (normal × 0.02, the rest as :func:`_mamba_layer_shapes` says),
+    drawn from ``generator`` on ``device`` (``cuda`` unless named; it must
+    be the generator's device).  The values are not the reference's: its
+    ``jax.random`` keys draw other numbers."""
     device = resolve_device(device)
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"generator is on {generator.device}, parameters "
                          f"on {device}")
     dtype = torch_dtype(cfg)
-    inits = {k: i for k, (_, i) in _attn_layer_shapes(cfg).items()}
 
-    def leaf(shape, init):
-        if init == "zeros":
-            return torch.zeros(shape, dtype=dtype, device=device)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return (w * 0.02).to(dtype)
+    def leaf(path, shape, init):
+        if init == "normal":
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device)
+            return (w * 0.02).to(dtype)
+        if init == "a_log":
+            n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            return torch.log(n).expand(shape).contiguous()
+        value = {"zeros": 0.0, "ones": 1.0, "dt_bias": -4.6}[init]
+        return torch.full(shape, value, dtype=dtype, device=device)
 
-    shapes = param_shapes(cfg)
-    return {"embed": leaf(shapes["embed"], "normal"),
-            "final_norm": leaf(shapes["final_norm"], "zeros"),
-            "stack": {j: {k: leaf(s, inits[k]) for k, s in slot.items()}
-                      for j, slot in shapes["stack"].items()},
-            "tail": [{k: leaf(s, inits[k]) for k, s in layer.items()}
-                     for layer in shapes["tail"]],
-            **({"lm_head": leaf(shapes["lm_head"], "normal")}
-               if "lm_head" in shapes else {})}
+    return _build_tree(_param_layout(cfg), leaf)
 
 
 def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
@@ -130,30 +174,26 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
     """The reference's parameter tree, as numpy arrays (``stack/slot<j>``
     stacked over periods, a ``tail`` list), as the port's tensors on
     ``device`` (``cuda`` unless named) in the config's dtype (or
-    ``dtype``).  Every shape is checked against :func:`param_shapes`."""
+    ``dtype``); ``A_log`` stays float32, as in the reference.  Every shape
+    is checked against :func:`param_shapes`."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    shapes = param_shapes(cfg)
 
-    def conv(x, shape, where):
-        a = np.asarray(x)
+    def get(path):
+        node = tree
+        for part in path.split("/"):
+            node = node[int(part)] if isinstance(node, (list, tuple)) \
+                else node[part]
+        return node
+
+    def conv(path, shape, init):
+        a = np.asarray(get(path))
         if a.shape != tuple(shape):
-            raise ValueError(f"{where}: shape {a.shape}, expected {shape}")
+            raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype)
+            device=device, dtype=torch.float32 if init == "a_log" else dtype)
 
-    out = {"embed": conv(tree["embed"], shapes["embed"], "embed"),
-           "final_norm": conv(tree["final_norm"], shapes["final_norm"],
-                              "final_norm"),
-           "stack": {j: {k: conv(tree["stack"][j][k], s, f"stack/{j}/{k}")
-                         for k, s in slot.items()}
-                     for j, slot in shapes["stack"].items()},
-           "tail": [{k: conv(tree["tail"][i][k], s, f"tail/{i}/{k}")
-                     for k, s in layer.items()}
-                    for i, layer in enumerate(shapes["tail"])]}
-    if "lm_head" in shapes:
-        out["lm_head"] = conv(tree["lm_head"], shapes["lm_head"], "lm_head")
-    return out
+    return _build_tree(_param_layout(cfg), conv)
 
 
 def _layers(params, cfg: ArchConfig):
@@ -183,10 +223,17 @@ def _mixer_mlp(p, x, cfg: ArchConfig, dispatch: str):
 
 
 def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
-                dispatch: str = "auto"):
-    """One layer; returns (x, aux_loss, cache_entry)."""
+                dispatch: str = "auto", scan: str = "auto"):
+    """One layer; returns (x, aux_loss, cache_entry).  ``dispatch`` is the
+    MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the selective
+    scan's (:func:`layers.mamba_block`)."""
     _require_ported(kind, cfg)
     h = L.rms_norm(p["ln1"], x, cfg.rms_eps)
+    if kind == "mamba":
+        out, (ssm, conv) = L.mamba_block(p, h, cfg, scan)
+        return (x + out, torch.zeros((), dtype=torch.float32,
+                                     device=x.device),
+                {"ssm": ssm, "conv": conv})
     attn_out, (ck, cv) = L.attention_full(p, h, cfg, positions,
                                           causal=cfg.causal)
     x, aux = _mixer_mlp(p, x + attn_out, cfg, dispatch)
@@ -218,10 +265,11 @@ def _logits(params, x, cfg: ArchConfig):
 
 
 def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
-            collect_cache: bool = False):
+            scan: str = "auto", collect_cache: bool = False):
     """Full forward pass over ``batch["tokens"]`` (B, S); returns
     (logits (B, S, V) float32, aux_loss, cache or None).  ``dispatch`` is
-    the MoE ticket-dispatch mode (:func:`layers.moe`)."""
+    the MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the
+    selective scan's (:func:`layers.mamba_block`)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -232,7 +280,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
         if cfg.n_periods else {}
     tail_caches = []
     for kind, p, where in _layers(params, cfg):
-        x, aux, cache = apply_layer(kind, p, x, cfg, positions, dispatch)
+        x, aux, cache = apply_layer(kind, p, x, cfg, positions, dispatch,
+                                    scan)
         aux_total = aux_total + aux
         if where[0] == "stack":
             stack_caches[where[1]].append(cache)
@@ -242,7 +291,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
     cache = None
     if collect_cache:
         cache = {"stack": {j: {k: torch.stack([c[k] for c in cs])
-                               for k in ("k", "v")}
+                               for k in cs[0]}
                            for j, cs in stack_caches.items()},
                  "tail": tail_caches}
     return logits, aux_total, cache
@@ -251,30 +300,43 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
-def prefill(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto"):
+def prefill(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
+            scan: str = "auto"):
     """Encode the prompt; returns (last-position logits, cache)."""
     logits, _, cache = forward(params, batch, cfg, dispatch=dispatch,
-                               collect_cache=True)
+                               scan=scan, collect_cache=True)
     return logits[:, -1], cache
 
 
 def _decode_layer(kind: str, p, x, cache, pos, cfg: ArchConfig,
                   dispatch: str = "auto"):
     """One layer of one-token decode; the layer's cache entry is updated in
-    place (see :func:`layers.attention_decode`)."""
+    place (see :func:`layers.attention_decode`; the Mamba states are copied
+    into theirs)."""
     _require_ported(kind, cfg)
     h = L.rms_norm(p["ln1"], x, cfg.rms_eps)
+    if kind == "mamba":
+        out, ssm, conv = L.mamba_decode(p, h, cache["ssm"], cache["conv"],
+                                        cfg)
+        cache["ssm"].copy_(ssm)
+        cache["conv"].copy_(conv)
+        return x + out, cache
     out, k2, v2 = L.attention_decode(p, h, cache["k"], cache["v"], pos, cfg)
     x, _ = _mixer_mlp(p, x + out, cfg, dispatch)
     return x, {"k": k2, "v": v2}
 
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
-                dispatch: str = "auto"):
+                dispatch: str = "auto", scan: str = "auto"):
     """One-token decode.  tokens (B, 1); pos an int, a 0-d tensor or a (B,)
     tensor of per-lane positions (current lengths).  Returns (logits (B, V),
     cache): the cache tree is updated **in place** (the reference returns a
-    new one from a donated buffer) and returned."""
+    new one from a donated buffer) and returned.  ``scan`` is checked but
+    launches nothing: the one-token Mamba step is plain PyTorch, as in the
+    reference."""
+    if scan not in SCAN_MODES:
+        raise ValueError(f"unknown scan mode {scan!r}; options: "
+                         f"{SCAN_MODES}")
     _check_ported(cfg)
     x = _embed(params, tokens, cfg)
     for kind, p, where in _layers(params, cfg):
@@ -288,18 +350,23 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
 
 def init_cache(cfg: ArchConfig, batch: int, s_ctx: int, dtype=None, *,
                device=None) -> dict:
-    """A zero KV cache for ``batch`` lanes of ``s_ctx`` positions on
-    ``device`` (``cuda`` unless named)."""
+    """A zero cache for ``batch`` lanes on ``device`` (``cuda`` unless
+    named): ``s_ctx`` positions of keys and values for attention layers,
+    the SSM state and conv tail for Mamba layers."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
     kv = (batch, s_ctx, cfg.n_kv_heads, cfg.head_dim)
+    ssm = (batch, cfg.d_inner, cfg.ssm_state)
+    conv = (batch, cfg.ssm_conv - 1, cfg.d_inner)
 
-    def zeros(*lead):
-        return {k: torch.zeros(lead + kv, dtype=dtype, device=device)
-                for k in ("k", "v")}
+    def zeros(kind, *lead):
+        shapes = ({"ssm": ssm, "conv": conv} if kind == "mamba"
+                  else {"k": kv, "v": kv})
+        return {k: torch.zeros(lead + s, dtype=dtype, device=device)
+                for k, s in shapes.items()}
 
-    return {"stack": ({f"slot{j}": zeros(cfg.n_periods)
-                       for j in range(cfg.period)} if cfg.n_periods else {}),
-            "tail": [zeros() for _ in cfg.tail_kinds]}
-
+    return {"stack": ({f"slot{j}": zeros(kind, cfg.n_periods)
+                       for j, kind in enumerate(cfg.layer_pattern)}
+                      if cfg.n_periods else {}),
+            "tail": [zeros(kind) for kind in cfg.tail_kinds]}

@@ -6,13 +6,17 @@ free up, advancing the grant counter through a :class:`LockGate` whose
 two-tier waiting is the paper's TWA algorithm at request granularity.
 
 The model side is PyTorch: per-request prefill (prompts right-padded to a
-multiple of ``pad_to``), one lane-packed KV cache updated in place, and a
-batched one-token decode step with per-lane positions that decodes every
-lane, finished ones included, as the reference does (their MoE routing
-takes expert capacity in the decode group).  Inside every MoE layer each
-routing decision draws a FIFO ticket from its expert through the CUDA
-ticket-dispatch kernel (``dispatch="auto"`` on a GPU) or its plain version
-(``dispatch="torch"``, or on the CPU).  A port of the reference's
+multiple of ``pad_to``; recurrent archs at their exact length), one
+lane-packed KV/SSM cache updated in place, and a batched one-token decode
+step with per-lane positions that decodes every lane, finished ones
+included, as the reference does (their MoE routing takes expert capacity in
+the decode group; their Mamba state advances until admission overwrites
+the lane's row).  Inside every MoE layer each routing decision draws a
+FIFO ticket from its expert through the CUDA ticket-dispatch kernel
+(``dispatch="auto"`` on a GPU) or its plain version (``dispatch="torch"``,
+or on the CPU); every Mamba layer's prefill runs the selective scan through
+the CUDA scan kernel (``scan="auto"`` on a GPU) or its plain version
+(``scan="torch"``, or on the CPU).  A port of the reference's
 ``repro/serve/engine.py``.
 """
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from ..kernels.ticket_dispatch.ops import MODES
 from ..device import resolve_device
 from ..models.model import decode_step, forward, init_cache
@@ -60,7 +65,8 @@ class ServeEngine:
                  record_trace: bool = False,
                  store: str | None = None,
                  workload: dict | None = None,
-                 device=None, dispatch: str = "auto") -> None:
+                 device=None, dispatch: str = "auto",
+                 scan: str = "auto") -> None:
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
@@ -68,6 +74,9 @@ class ServeEngine:
         if dispatch not in MODES:
             raise ValueError(f"unknown dispatch mode {dispatch!r}; "
                              f"options: {MODES}")
+        if scan not in SCAN_MODES:
+            raise ValueError(f"unknown scan mode {scan!r}; options: "
+                             f"{SCAN_MODES}")
         self.cfg = cfg
         self.params = params
         self.lanes = lanes
@@ -78,6 +87,7 @@ class ServeEngine:
         self.pad_to = 1 if recurrent else pad_to
         self.temperature = temperature
         self.dispatch = dispatch
+        self.scan = scan
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
 
@@ -158,7 +168,8 @@ class ServeEngine:
         tokens[0, :L] = req.prompt
         logits, _, new_cache = forward(
             self.params, {"tokens": torch.from_numpy(tokens).to(self.device)},
-            self.cfg, dispatch=self.dispatch, collect_cache=True)
+            self.cfg, dispatch=self.dispatch, scan=self.scan,
+            collect_cache=True)
         insert_prefill(self.cache, new_cache, lane)
         first = int(self._sample(logits[0, L - 1][None])[0])
         self.prefill_count += 1
@@ -218,7 +229,8 @@ class ServeEngine:
         pos = torch.from_numpy(self.lane_pos.astype(np.int64))
         logits, self.cache = decode_step(
             self.params, self.cache, tokens.to(self.device),
-            pos.to(self.device), self.cfg, dispatch=self.dispatch)
+            pos.to(self.device), self.cfg, dispatch=self.dispatch,
+            scan=self.scan)
         next_tok = self._sample(logits)
         self.step_count += 1
         for lane in active:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (the lockVM and the MoE ticket dispatch): their
-build, their wrappers and their entry points.
+"""The port's CUDA kernels (the lockVM, the MoE ticket dispatch and the
+Mamba selective scan): their build, their wrappers and their entry points.
 
 Runs here on the CPU for what does not need a card — the build commands and
 the generated constants headers, the parallel build, the device rules of
@@ -9,8 +9,13 @@ CPU tensors.  The kernel-vs-plain cases need a CUDA device: they are marked
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerance everywhere: bit-identical int32 outputs, and bit-identical tokens
-for the serve run whose MoE layers go through the ticket kernel.
+Tolerance: bit-identical int32 outputs, and bit-identical tokens for the
+serve run whose MoE layers go through the ticket kernel.  The scan kernel
+keeps its state in float32: it is held to the plain loop on float32 casts
+of its inputs within rtol = atol = 1e-5 for float32 inputs and 5e-2 for
+bf16 (the reference's tolerances for its kernel); the two-layer Mamba
+serve in float32 gives the plain path's tokens, with first-token logits
+within 1e-4 (float32 sums in other orders across 4,096-wide layers).
 """
 
 import dataclasses
@@ -25,11 +30,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import _build
 from repro_torch.configs import get_config
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_ref
 from repro_torch.kernels.ticket_dispatch import assign_slots, dispatch_ref
 from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
 from repro_torch.models.layers import moe_capacity
 from repro_torch.models.model import init_params
 from repro_torch.serve import ServeEngine
+from repro_torch.serve import engine as engine_mod
 from repro_torch.sim import SIM_LOCKS, SweepSpec, engine, engine_cuda, isa
 from repro_torch.sim import costs, faults, run_sim, sweep_engine_args
 from repro_torch.sim import workloads
@@ -223,6 +231,43 @@ def test_ticket_build_command_and_generated_header(tmp_path):
         _build.sources("nope")
 
 
+def test_scan_build_command_and_generated_header(tmp_path):
+    header = tmp_path / "h.h"
+    cmd = _build.build_command("mamba_scan", tmp_path / "lib.so", header)
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "--use_fast_math" not in cmd    # expf, as the reference's exp
+    csrc = _build.CSRC
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".h"))]
+    assert inputs == [str(header), str(csrc / "mamba_scan.cu")]
+    srcs = _build.sources("mamba_scan")
+    assert [p.name for p in srcs] == ["mamba_scan.cu",
+                                      "mamba_scan_kernel.cuh"]
+    for path in srcs:
+        assert path.is_file() and path.parent == csrc
+        for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert (csrc / inc).is_file(), inc
+    defs = {k: int(v) for k, v in re.findall(
+        r"#define (\w+) (-?\d+)", _build.mamba_constants_header())}
+    assert defs == {"MS_THREADS": scan_kernel.THREADS,
+                    "MS_CHUNK": scan_kernel.CHUNK,
+                    "MS_MIN_N": min(scan_kernel.STATE_SIZES),
+                    "MS_MAX_N": max(scan_kernel.STATE_SIZES),
+                    "MS_BF16_X": 1, "MS_BF16_DT": 2, "MS_BF16_A": 4,
+                    "MS_BF16_B": 8, "MS_BF16_C": 16, "MS_BF16_D_SKIP": 32,
+                    "MS_BF16_H0": 64}
+    # each input its own bit, and the kernel reads every one of them
+    assert sorted(scan_kernel.BF16_BITS.values()) == [1 << i
+                                                      for i in range(7)]
+    # every state size divides a warp and the block
+    for n in scan_kernel.STATE_SIZES:
+        assert 32 % n == 0 and scan_kernel.THREADS % n == 0
+    src = "".join(p.read_text() for p in srcs)
+    for name in defs:
+        assert not re.search(rf"#define\s+{name}\b", src), name
+        if name.startswith("MS_BF16_"):
+            assert re.search(rf"bf16 & {name}\b", src), name
+
+
 def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     """One nvcc per missing library, all started before any is waited on."""
     log = tmp_path / "log"
@@ -237,16 +282,17 @@ def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "build_logs", {})
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Path(path))
-    libs = _build.load_libraries(["lockvm", "ticket_dispatch"])
-    assert log.read_text().split() == ["start", "start", "end", "end"]
-    assert [p.name.split("-")[0] for p in libs] == ["liblockvm",
-                                                    "libticket_dispatch"]
+    names = list(_build.KERNELS)
+    assert names == ["lockvm", "ticket_dispatch", "mamba_scan"]
+    libs = _build.load_libraries(names)
+    assert log.read_text().split() == ["start"] * 3 + ["end"] * 3
+    assert [p.name.split("-")[0] for p in libs] == [f"lib{n}" for n in names]
     assert all(p.exists() for p in libs)
-    assert set(_build.build_logs) == {"lockvm", "ticket_dispatch"}
+    assert set(_build.build_logs) == set(names)
     # a second call builds nothing: the hashed libraries are reused
     monkeypatch.setattr(_build, "_libs", {})
-    assert _build.load_libraries(["ticket_dispatch"]) == libs[1:]
-    assert log.read_text().split().count("start") == 2
+    assert _build.load_libraries(["ticket_dispatch"]) == libs[1:2]
+    assert log.read_text().split().count("start") == 3
 
 
 def test_cell_state_bytes_fits_fig3_in_shared_memory():
@@ -398,4 +444,130 @@ def test_two_layer_granite_serve_kernel_matches_plain_dispatch(cuda_device):
                             if dispatch == "auto" else 0)
         out[dispatch] = [r.tokens_out for r in reqs]
         assert all(len(t) == 8 for t in out[dispatch])
+    assert out["auto"] == out["torch"]
+
+
+# ---------------------------------------------------------------------------
+# Selective-scan kernel and the Mamba serve path (CUDA device only)
+# ---------------------------------------------------------------------------
+def _scan_cases():
+    """(name, inputs as float32 numpy, dtype): falcon-mamba-7b's full-width
+    prefill (L 256, D 8,192, N 16) in bf16 and float32, tests/test_kernels
+    .py's shapes, L 1 and 33, D 20, N 4 and 8, a batch of 2 with h0 shared
+    and per sequence, and mixed dtypes (float32 A and D_skip, bf16 rest)."""
+    rng = np.random.default_rng(0)
+
+    def draw(L, D, N, lead=(), per_seq=False, h0=False):
+        own = lead if per_seq else ()
+        arrays = [rng.normal(size=lead + (L, D)),
+                  rng.uniform(0.01, 0.2, size=lead + (L, D)),
+                  -rng.uniform(0.5, 2.0, size=own + (D, N)),
+                  rng.normal(size=lead + (L, N)),
+                  rng.normal(size=lead + (L, N)), rng.normal(size=own + (D,)),
+                  rng.normal(size=own + (D, N)) if h0 else None]
+        return [None if a is None else a.astype(np.float32) for a in arrays]
+
+    cases = [("prefill_bf16", draw(256, 8192, 16), "bf16"),
+             ("prefill_f32", draw(256, 8192, 16), "f32")]
+    cases += [(f"L{L}_D{D}_N{N}", draw(L, D, N), dt) for L, D, N, dt in (
+        (16, 8, 4, "f32"), (100, 96, 16, "f32"), (256, 128, 16, "f32"),
+        (33, 20, 8, "f32"), (64, 64, 16, "bf16"), (1, 40, 16, "f32"),
+        (33, 40, 16, "bf16"), (70, 20, 4, "f32"), (70, 20, 8, "f32"))]
+    cases += [("batch2_h0_shared", draw(40, 24, 8, (2,), h0=True), "f32"),
+              ("batch2_h0_per_seq", draw(40, 24, 8, (2,), True, True),
+               "bf16"),
+              ("mixed_dtypes", draw(50, 30, 16), "mixed")]
+    return cases
+
+
+def _on(arrays, dtype, device):
+    """The inputs on ``device``: all in ``dtype`` ("f32", "bf16"), or bf16
+    with float32 A and D_skip ("mixed")."""
+    out = []
+    for i, a in enumerate(arrays):
+        if a is None:
+            out.append(None)
+            continue
+        t = torch.from_numpy(a).to(device)
+        bf16 = dtype == "bf16" or (dtype == "mixed" and i not in (2, 5))
+        out.append(t.to(torch.bfloat16) if bf16 else t)
+    return out
+
+
+@pytest.mark.cuda
+def test_scan_kernel_matches_plain(cuda_device):
+    cases = _scan_cases()
+    for name, arrays, dtype in cases:
+        args = _on(arrays, dtype, cuda_device)
+        before = scan_kernel.launches
+        y, h = scan_kernel.selective_scan(*args)
+        torch.cuda.synchronize()
+        assert scan_kernel.launches == before + 1
+        assert y.dtype == h.dtype == args[0].dtype
+        ry, rh = selective_scan_ref(*(None if a is None else a.float()
+                                      for a in args))
+        tol = 1e-5 if dtype == "f32" else 5e-2
+        torch.testing.assert_close(y.float(), ry, rtol=tol, atol=tol,
+                                   msg=name)
+        torch.testing.assert_close(h.float(), rh, rtol=tol, atol=tol,
+                                   msg=name)
+    # h0 threads through: two halves equal one scan
+    x, dt, A, B, C, Dsk, _ = _on(cases[2][1], "f32", cuda_device)
+    y_full, h_full = selective_scan_ref(x, dt, A, B, C, Dsk)
+    y_a, h_a = scan_kernel.selective_scan(x[:5], dt[:5], A, B[:5], C[:5],
+                                          Dsk)
+    y_b, h_b = scan_kernel.selective_scan(x[5:], dt[5:], A, B[5:], C[5:],
+                                          Dsk, h_a)
+    torch.testing.assert_close(torch.cat([y_a, y_b]), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h_b, h_full, rtol=1e-5, atol=1e-5)
+    # the public op: auto launches (strided B and C made contiguous),
+    # torch does not
+    before = scan_kernel.launches
+    proj = torch.randn(2, 7, 32, device=cuda_device)
+    Bm, Cm = proj[..., :16], proj[..., 16:]
+    args = (torch.randn(2, 7, 24, device=cuda_device),
+            torch.rand(2, 7, 24, device=cuda_device) * 0.2,
+            -0.5 - torch.rand(24, 16, device=cuda_device), Bm, Cm,
+            torch.randn(24, device=cuda_device))
+    a = selective_scan(*args)
+    b = selective_scan(*args, mode="torch")
+    assert scan_kernel.launches == before + 1
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_two_layer_falcon_mamba_serve_kernel_matches_plain_scan(
+        cuda_device, monkeypatch):
+    """Full-width falcon-mamba-7b cut to two layers, float32 on the card:
+    the tokens with the scan kernel equal the plain scan's, every prefill
+    launched the kernel once per layer and decode none."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(1, 120)))
+               .tolist() for _ in range(6)]
+    out, first = {}, {}
+    real = engine_mod.sample
+    for scan in ("auto", "torch"):
+        logits = []
+        monkeypatch.setattr(engine_mod, "sample", lambda lg, *a, **k: (
+            logits.append(lg.float().cpu()), real(lg, *a, **k))[1])
+        eng = ServeEngine(cfg, params, lanes=4, max_ctx=160,
+                          device=cuda_device, scan=scan)
+        before = scan_kernel.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run()
+        assert scan_kernel.launches - before == (
+            cfg.n_layers * eng.prefill_count if scan == "auto" else 0)
+        out[scan] = [r.tokens_out for r in reqs]
+        first[scan] = [lg for lg in logits if lg.shape[0] == 1]
+        assert all(len(t) == 8 for t in out[scan])
+    assert len(first["auto"]) == len(prompts)
+    for a, b in zip(first["auto"], first["torch"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     assert out["auto"] == out["torch"]

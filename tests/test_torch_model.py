@@ -28,6 +28,7 @@ from repro_torch.models import model as M
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
 ARCHS = ("granite-moe-1b-a400m", "deepseek-7b")
+MODEL_ARCHS = ARCHS + ("falcon-mamba-7b",)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,7 +179,7 @@ def test_top_k_breaks_ties_to_the_lower_index():
     np.testing.assert_array_equal(vals.numpy(), np.asarray(r_vals))
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=MODEL_ARCHS)
 def model_pair(request):
     cfg = get_config(request.param).reduced()
     ref_params = RM.init_params(cfg, jax.random.PRNGKey(0))
@@ -198,17 +199,20 @@ def test_forward_and_prefill(model_pair):
     _close(logits, r_logits)
     _close(aux, r_aux)
     assert bool((logits[..., cfg.vocab:] == -1e30).all())
+    assert cache["stack"].keys() == r_cache["stack"].keys()
     for j, slot in cache["stack"].items():
-        for k in ("k", "v"):
-            _close(slot[k], r_cache["stack"][j][k])
+        assert slot.keys() == r_cache["stack"][j].keys()
+        for k, leaf in slot.items():
+            _close(leaf, r_cache["stack"][j][k])
     last, _ = M.prefill(params, {"tokens": torch.from_numpy(tokens)}, cfg)
     r_last, _ = RM.prefill(ref_params, {"tokens": jnp.asarray(tokens)}, cfg)
     _close(last, r_last)
 
 
 def test_decode_steps_match(model_pair):
-    """Prefill a right-padded prompt into a cache, then decode three tokens
-    with per-lane positions, lane 1 idle at its last position."""
+    """Decode three tokens into a zero cache with per-lane positions, lane
+    1 idle at its last position (a Mamba lane advances its state all the
+    same, as in the reference)."""
     cfg, ref_params, params = model_pair
     B, S_ctx = 2, 32
     cache = M.init_cache(cfg, B, S_ctx, device=CPU)
@@ -227,8 +231,8 @@ def test_decode_steps_match(model_pair):
                                            jnp.asarray(pos), cfg)
         _close(logits, r_logits)
         for j, slot in cache["stack"].items():
-            for k in ("k", "v"):
-                _close(slot[k], r_cache["stack"][j][k])
+            for k, leaf in slot.items():
+                _close(leaf, r_cache["stack"][j][k])
         tokens = np.asarray(r_logits).argmax(-1).astype(np.int32)[:, None]
         pos = pos + np.array([1, 0], np.int32)
 
@@ -259,24 +263,118 @@ def test_init_params_shapes_and_device_rules(monkeypatch):
         M.init_cache(cfg, 2, 16)
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "recurrentgemma-9b",
-                                  "gemma3-1b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "gemma3-1b",
+                                  "qwen2-vl-72b"])
 def test_unported_layer_kinds_name_their_roadmap_item(name):
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.init_params(cfg, torch.Generator(), device=CPU)
 
 
-def test_kernel_bounds_of_the_scans_still_to_port(capsys):
+def test_rglru_and_local_still_raise_and_mamba_runs():
+    """Only the Griffin kinds (with kernel 4) are left to port."""
+    cfg = get_config("recurrentgemma-9b").reduced()
+    for kind in ("rglru", "local"):
+        with pytest.raises(NotImplementedError, match="ROADMAP, kernel 4"):
+            M.apply_layer(kind, {}, torch.zeros(1, 2, cfg.d_model), cfg,
+                          None)
+    M._require_ported("mamba", cfg)
+    with pytest.raises(ValueError, match="nope"):
+        M._require_ported("nope", cfg)
+
+
+def test_kernel_bounds_of_the_mamba_and_rglru_scans(capsys):
     """``repro_torch.bench.kernel_bounds`` counts each input and output
-    once at the serve traffic's longest prompt."""
+    once at the serve traffic's longest prompt; the Mamba prefill starts
+    from a zero state, so its kernel reads no h0."""
     from repro_torch.bench import kernel_bounds
 
     mamba, rglru = kernel_bounds.main()
     D, N, L = 8192, 16, kernel_bounds.PROMPT
-    assert mamba["bytes"] == 2 * (3 * L * D + 3 * D * N + 2 * L * N + D)
+    assert mamba["bytes"] == 2 * (3 * L * D + 2 * D * N + 2 * L * N + D)
     assert rglru["bytes"] == 2 * (3 * L * 4096 + 2 * 4096)
     for row in (mamba, rglru):
         assert row["bound_by"] == "bytes"
         assert row["bound_ms"] == row["bytes"] / 3.35e12 * 1e3
     assert len(capsys.readouterr().out.splitlines()) == 2
+
+
+# ---------------------------------------------------------------------------
+# Mamba
+# ---------------------------------------------------------------------------
+def _mamba_params(cfg, seed):
+    """One Mamba layer's weights, as numpy: the reference's constant inits
+    (A_log = log(1..N), D_skip ones, dt_bias -4.6, zeros) plus noise, and
+    normals for the projections."""
+    base = {"zeros": 0.0, "ones": 1.0, "dt_bias": -4.6}
+    out = {}
+    for i, (k, (s, init)) in enumerate(M._mamba_layer_shapes(cfg).items()):
+        noise = _rand(seed + i, *s, scale=0.2 if init == "normal" else 0.1)
+        if init == "a_log":
+            noise += np.log(np.arange(1, s[-1] + 1, dtype=np.float32))
+        out[k] = noise + base.get(init, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 2, 40])
+def test_mamba_block_and_decode(S):
+    """Prompts shorter than the conv's kw-1 = 3 leave zeros in its tail."""
+    cfg = get_config("falcon-mamba-7b").reduced()
+    p = _mamba_params(cfg, 30)
+    pt = {k: _t(v) for k, v in p.items()}
+    pj = {k: jnp.asarray(v) for k, v in p.items()}
+    x = _rand(31, 2, S, cfg.d_model)
+    out, (ssm, conv) = L.mamba_block(pt, _t(x), cfg)
+    r_out, (r_ssm, r_conv) = RL.mamba_block(pj, jnp.asarray(x), cfg)
+    assert ssm.shape == (2, cfg.d_inner, cfg.ssm_state)
+    assert conv.shape == (2, cfg.ssm_conv - 1, cfg.d_inner)
+    _close(out, r_out)
+    _close(ssm, r_ssm)
+    _close(conv, r_conv)
+    if S < cfg.ssm_conv - 1:
+        assert float(conv[:, :cfg.ssm_conv - 1 - S].abs().max()) == 0.0
+    plain, _ = L.mamba_block(pt, _t(x), cfg, scan="torch")
+    assert torch.equal(plain, out)
+    # two decode steps from the prefill's states
+    tok = _rand(32, 2, 1, cfg.d_model)
+    for _ in range(2):
+        out, ssm, conv = L.mamba_decode(pt, _t(tok), ssm, conv, cfg)
+        r_out, r_ssm, r_conv = RL.mamba_decode(pj, jnp.asarray(tok), r_ssm,
+                                               r_conv, cfg)
+        _close(out, r_out)
+        _close(ssm, r_ssm)
+        _close(conv, r_conv)
+        tok = np.array(r_out)
+
+
+def test_softplus_is_logaddexp_beyond_20():
+    x = np.array([-30.0, -1.0, 0.0, 3.0, 19.0, 21.0, 40.0], np.float32)
+    _close(L.softplus(_t(x)), jax.nn.softplus(jnp.asarray(x)))
+
+
+def test_mamba_init_params_and_cache_shapes():
+    """The reference's shapes and constant inits (A_log float32 in a bf16
+    model), and the SSM/conv cache the reference's ``init_cache`` builds."""
+    for cfg in (get_config("falcon-mamba-7b").reduced(),
+                dataclasses.replace(get_config("falcon-mamba-7b"),
+                                    n_layers=1, vocab=512)):
+        ref = jax.eval_shape(lambda: RM.init_params(cfg,
+                                                    jax.random.PRNGKey(0)))
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=CPU)
+        assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]),
+                            params) == \
+            jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), ref)
+        layer = params["stack"]["slot0"]
+        n = torch.arange(1, cfg.ssm_state + 1, dtype=torch.float32)
+        assert torch.equal(layer["A_log"][0, 5], torch.log(n))
+        assert float(layer["D_skip"].float().min()) == 1.0 == \
+            float(layer["D_skip"].float().max())
+        assert torch.equal(layer["dt_bias"], torch.full_like(
+            layer["dt_bias"], -4.6))
+        assert float(layer["conv_b"].abs().max()) == 0.0
+        cache = M.init_cache(cfg, 3, 64, device=CPU)
+        r_cache = jax.eval_shape(lambda: RM.init_cache(cfg, 3, 64))
+        assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype)[6:]),
+                            cache) == \
+            jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), r_cache)

@@ -189,9 +189,10 @@ def test_fault_schedules_match():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch``, its subpackages (the lockVM, core, configs, kernels,
-    models, serve and the serve launcher) and everything ``chip_smoke``
-    imports load without JAX or any ``repro`` module."""
+    """``repro_torch``, its subpackages (the lockVM, core, configs, the
+    ticket-dispatch and selective-scan kernels, models, serve, the serve
+    launcher and the benchmarks) and everything ``chip_smoke`` imports load
+    without JAX or any ``repro`` module."""
     code = textwrap.dedent("""
         import importlib.util, sys
         sys.path.insert(0, "src")
@@ -200,9 +201,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.bench.fig3_mutexbench
         import repro_torch.core, repro_torch.configs, repro_torch.kernels
         import repro_torch.kernels.ticket_dispatch.kernel
+        import repro_torch.kernels.mamba_scan.kernel
+        import repro_torch.kernels.mamba_scan.ops
         import repro_torch.models.model, repro_torch.serve
         import repro_torch.launch.serve
+        import repro_torch.bench.serve_profile
+        import repro_torch.bench.kernel_bounds
         repro_torch._build.ticket_constants_header()
+        repro_torch._build.mamba_constants_header()
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -32,6 +32,7 @@ from repro_torch.serve import (FissileTWAGate, LockTraceRecorder, RWTWAGate,
                                gate_kind_for_lock, load_trace, make_gate)
 from repro_torch.serve import admission
 from repro_torch.serve import engine as engine_mod
+from repro_torch.serve.kv_cache import insert_prefill
 from repro_torch.serve.trace import TRACE_VERSION
 from repro_torch.sim.programs import SIM_LOCKS
 
@@ -62,7 +63,8 @@ def _record_sampling(monkeypatch, module, box, calls):
     monkeypatch.setattr(module, "sample", recording)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-7b",
+                                  "falcon-mamba-7b"])
 def test_greedy_tokens_match_the_reference_engine(arch, monkeypatch):
     cfg = get_config(arch).reduced()
     ref_params = ref_init_params(ref_config(arch).reduced(),
@@ -143,6 +145,57 @@ def test_lane_reuse_matches_fresh_engine(small_setup):
     r_used = used.submit(probe, max_new_tokens=6)
     used.run()
     assert r_fresh.tokens_out == r_used.tokens_out
+
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    cfg = get_config("falcon-mamba-7b").reduced()
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+
+
+@pytest.mark.parametrize("probe", [[3], [3, 1], [3, 1, 4, 1, 5, 9, 2, 6]])
+def test_mamba_lane_reuse_matches_fresh_engine(mamba_setup, probe):
+    """A Mamba lane that served a long request, and decoded on while idle,
+    gives a new request the state of a fresh lane: admission writes the
+    whole SSM and conv row, also for prompts shorter than the conv's
+    kw-1."""
+    cfg, params = mamba_setup
+    fresh = ServeEngine(cfg, params, lanes=2, max_ctx=64, device=CPU)
+    r_fresh = fresh.submit(probe, max_new_tokens=5)
+    fresh.run()
+    used = ServeEngine(cfg, params, lanes=2, max_ctx=64, device=CPU)
+    used.submit(list(range(1, 31)), max_new_tokens=2)
+    used.submit([7, 8, 9], max_new_tokens=9)
+    r_used = used.submit(probe, max_new_tokens=5)
+    used.run()
+    assert r_used.admitted_at_step > 0
+    assert r_fresh.tokens_out == r_used.tokens_out
+
+
+def test_insert_prefill_writes_whole_state_rows():
+    """Sequence leaves take the prompt's positions, state leaves the whole
+    row; a state leaf that does not fill the row raises."""
+    batch = {"stack": {"slot0": {"k": torch.ones(2, 3, 8, 1),
+                                 "ssm": torch.ones(2, 3, 4, 2)}},
+             "tail": [{"conv": torch.ones(3, 3, 4)}]}
+    new = {"stack": {"slot0": {"k": torch.zeros(2, 1, 5, 1),
+                               "ssm": torch.zeros(2, 1, 4, 2)}},
+           "tail": [{"conv": torch.zeros(1, 3, 4)}]}
+    out = insert_prefill(batch, new, 1)
+    assert out is batch
+    k, ssm = batch["stack"]["slot0"]["k"], batch["stack"]["slot0"]["ssm"]
+    assert float(k[:, 1, :5].sum()) == 0 and float(k[:, 1, 5:].min()) == 1
+    assert float(ssm[:, 1].abs().sum()) == 0
+    assert float(ssm[:, 0].min()) == float(ssm[:, 2].min()) == 1
+    assert float(batch["tail"][0]["conv"][1].abs().sum()) == 0
+    new["tail"][0]["conv"] = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="state leaf 'conv'"):
+        insert_prefill(batch, new, 0)
+    new["tail"][0]["conv"] = torch.zeros(1, 3, 4)
+    new["stack"]["slot0"]["k"] = torch.zeros(2, 1, 9, 1)
+    with pytest.raises(ValueError, match="exceeds"):
+        insert_prefill(batch, new, 0)
 
 
 def test_two_tier_waiting_telemetry(small_setup):
@@ -269,6 +322,8 @@ def test_engine_device_rules(small_setup, monkeypatch):
         ServeEngine(cfg, params, device="meta")
     with pytest.raises(ValueError, match="dispatch"):
         ServeEngine(cfg, params, device=CPU, dispatch="pallas")
+    with pytest.raises(ValueError, match="scan mode"):
+        ServeEngine(cfg, params, device=CPU, scan="pallas")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params)
@@ -278,6 +333,15 @@ def test_engine_device_rules(small_setup, monkeypatch):
 
 def test_launch_serve_on_the_cpu(capsys):
     out = launch_serve.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                             "--device", "cpu", "--requests", "3",
+                             "--max-new", "4"])
+    assert [len(r.tokens_out) for r in out["requests"]] == [4, 4, 4]
+    text = capsys.readouterr().out
+    assert "[serve] 3 requests, 12 tokens" in text and "on cpu" in text
+
+
+def test_launch_serve_falcon_mamba_on_the_cpu(capsys):
+    out = launch_serve.main(["--arch", "falcon-mamba-7b", "--reduced",
                              "--device", "cpu", "--requests", "3",
                              "--max-new", "4"])
     assert [len(r.tokens_out) for r in out["requests"]] == [4, 4, 4]
