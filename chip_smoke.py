@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card — the lockVM sweep behind the
+Drives the port's four paths on the card — the lockVM sweep behind the
 paper's fig3, serving granite-moe-1b-a400m at full width through the
-ticket-FIFO ``ServeEngine``, and serving falcon-mamba-7b at full width
-through the same engine — through the entry points a user calls, and
-checks them:
+ticket-FIFO ``ServeEngine``, and serving falcon-mamba-7b and
+recurrentgemma-9b at full width through the same engine — through the
+entry points a user calls, and checks them:
 
 1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
-   ``csrc/ticket_dispatch.cu`` and ``csrc/mamba_scan.cu`` built with
-   ``nvcc`` for ``sm_90a`` from the checkout, all at once.
+   ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu`` and
+   ``csrc/rglru_scan.cu`` built with ``nvcc`` for ``sm_90a`` from the
+   checkout, all at once.
 2. kernel vs plain: the lockVM kernel (``mode="cuda"``) against the plain
    PyTorch engine on the card, bit-identical on all eight output stats, on
    the 14 ``tests/corpus`` entries, a fault sweep (preemptions, spurious
@@ -44,6 +45,24 @@ checks them:
    wherever its top-2 margin exceeds twice the largest first-token logit
    difference.  A reduced float32 model on the card agrees with the same
    model on the CPU.
+9. RG-LRU kernel vs plain: the RG-LRU scan kernel against the plain loop
+   on float32 casts of its inputs, within 1e-5 (float32 inputs) and 5e-2
+   (bf16), and within one ulp of the output's dtype of that loop rounded
+   to it, at recurrentgemma-9b's full-width prefill shapes (L 256 and
+   2,600, D 4,096) and small, ragged, batched, h0-threaded and mixed-dtype
+   cases; at the full-width shapes the bf16-state loop must fail the ulp
+   limit, so that it tells a float32 state from a bf16 one; its time at both prefill shapes (back-to-back calls, and the
+   kernel alone under ``torch.profiler``) beside the plain loop's.
+10. serve_griffin: recurrentgemma-9b at full width (38 layers, d 4,096,
+   window 2,048, bf16, random weights from a seeded generator) on the
+   shared traffic plus two long requests (2,030 prompt tokens, whose
+   decode crosses the ring's wrap, and 2,600, whose prefill takes the
+   banded chunked attention and the ring reorder), ``max_ctx`` 4,096:
+   every prefill goes through the RG-LRU kernel once per RG-LRU layer,
+   decode through none; the first-token margin rule against
+   ``scan="torch"`` as in phase 8.  A reduced float32 model on the card,
+   on a prompt longer than its window, agrees with the same model on the
+   CPU.
 
 Each phase prints one JSON line.  Before the last line come the kernel
 table (a JSON object with key ``kernels``) and the ``nvidia-smi`` name and
@@ -53,6 +72,7 @@ exits non-zero.  Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -68,10 +88,16 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-# The serve phases: granite-moe-1b-a400m and falcon-mamba-7b at full width,
-# on one traffic.
+# The serve phases: granite-moe-1b-a400m, falcon-mamba-7b and
+# recurrentgemma-9b at full width, on one traffic (recurrentgemma's with two
+# long requests added, GRIFFIN_LONG prompt tokens, and a longer context).
 SERVE_ARCH = "granite-moe-1b-a400m"
 MAMBA_ARCH = "falcon-mamba-7b"
+GRIFFIN_ARCH = "recurrentgemma-9b"
+GRIFFIN_LONG = (2030, 2600)
+GRIFFIN_CTX = 4096
+# the RG-LRU kernel's timed shapes: a 256-token and the 2,600-token prefill
+GRIFFIN_PREFILL_L = (256, 2600)
 SERVE_REQUESTS = 16
 SERVE_PROMPT = (16, 256)       # prompt lengths drawn in [16, 256]
 SERVE_NEW = 32
@@ -175,6 +201,26 @@ def launch_ms(fn, launches: int = 200, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
+def profiled_ms(fn, kernel_name: str, launches: int = 50) -> float:
+    """Median device time in ms of the kernels named ``kernel_name`` over
+    ``launches`` calls of ``fn`` under ``torch.profiler``: the kernel alone,
+    where back-to-back calls of a short kernel time the host's wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_name in e.name]
+    assert len(times) == launches, (kernel_name, len(times))
+    return float(np.median(times)) / 1e3
+
+
 def ticket_cases(dev, moe_capacity, cfg, max_experts: int) -> list:
     """(name, ids (G, n) int32 on the card, E, capacity) of the ticket
     check: granite-moe's prefill groups (N·K = 8·Lp arrivals, E = 32) and
@@ -243,22 +289,25 @@ def ticket_phase(dev, kernel, ref, moe_capacity, cfg) -> dict:
             "timed": timed}
 
 
-def serve_prompts(cfg) -> list:
+def serve_prompts(cfg, long: tuple = ()) -> list:
     """The serve traffic's prompts: SERVE_REQUESTS seeded draws of
-    SERVE_PROMPT lengths."""
+    SERVE_PROMPT lengths, then one prompt of each length in ``long`` from
+    the same draw."""
     rng = np.random.default_rng(0)
-    return [rng.integers(1, cfg.vocab, size=int(rng.integers(
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(
         SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))).tolist()
         for _ in range(SERVE_REQUESTS)]
+    return prompts + [rng.integers(1, cfg.vocab, size=n).tolist()
+                      for n in long]
 
 
 def timed_serve(ServeEngine, cfg, params, dev, prompts, max_new, kernel,
-                **modes) -> dict:
+                max_ctx: int = SERVE_CTX, **modes) -> dict:
     """One engine run over ``prompts`` with the kernel modes ``modes``:
     the engine, its requests, the wall time, each prefill's seconds and
     kernel launches, the launches of the whole run and each request's
     first-token logits (float32, on the host)."""
-    eng = ServeEngine(cfg, params, lanes=SERVE_LANES, max_ctx=SERVE_CTX,
+    eng = ServeEngine(cfg, params, lanes=SERVE_LANES, max_ctx=max_ctx,
                       device=dev, **modes)
     prefill_s, prefill_launches, first = [], [], []
     admit, sample = eng._admit, eng._sample
@@ -282,7 +331,11 @@ def timed_serve(ServeEngine, cfg, params, dev, prompts, max_new, kernel,
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
-    return {"eng": eng, "reqs": reqs, "wall": time.perf_counter() - t0,
+    wall = time.perf_counter() - t0
+    # the wrappers hold the engine's bound methods: a reference cycle that
+    # would keep the engine, and the weights it holds, alive past the phase
+    del eng._admit, eng._sample
+    return {"eng": eng, "reqs": reqs, "wall": wall,
             "prefill_s": prefill_s, "prefill_launches": prefill_launches,
             "launches": kernel.launches, "first_logits": first}
 
@@ -362,14 +415,37 @@ def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def margin_rule(auto: dict, plain: dict, cfg) -> dict:
+    """First tokens of a kernel run (float32 state) against a plain run
+    (bf16 state): they must agree wherever the plain run's top-2 margin
+    exceeds twice the largest first-token logit difference, since tokens
+    may part only where logits nearly tie.  Returns the differences and
+    the counts of decided, equal first tokens and equal streams."""
+    diffs = [float((a - b)[:cfg.vocab].abs().max())
+             for a, b in zip(auto["first_logits"], plain["first_logits"])]
+    delta = max(diffs)
+    decided, agree = 0, 0
+    for a_req, p_req, row in zip(auto["reqs"], plain["reqs"],
+                                 plain["first_logits"]):
+        top2 = torch.topk(row[:cfg.vocab], 2).values
+        if float(top2[0] - top2[1]) > 2 * delta:
+            decided += 1
+            assert a_req.tokens_out[0] == p_req.tokens_out[0], a_req.rid
+        agree += a_req.tokens_out[0] == p_req.tokens_out[0]
+    streams = sum(a.tokens_out == b.tokens_out
+                  for a, b in zip(auto["reqs"], plain["reqs"]))
+    return {"first_logit_max_abs_diff": delta,
+            "first_logit_max_abs_diff_per_request": diffs,
+            "first_tokens_decided_by_margin": decided,
+            "first_tokens_equal": int(agree),
+            "token_streams_equal": int(streams)}
+
+
 def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
     """Serve the same traffic on falcon-mamba-7b at full width through the
     scan kernel (``scan="auto"``): each prefill launches it once per layer,
     decode never.  Then the same prompts with ``scan="torch"``, the plain
-    loop in bf16: its first token must agree wherever its top-2 margin
-    exceeds twice the largest first-token logit difference (the kernel
-    keeps h in float32, the plain loop in bf16, so tokens may part where
-    logits nearly tie)."""
+    loop in bf16, held to :func:`margin_rule`."""
     prompts = serve_prompts(cfg)
 
     def run(scan, max_new):
@@ -394,19 +470,7 @@ def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
     plain_s = time.perf_counter() - t_plain
     assert plain["launches"] == 0, plain["launches"]
     check_served(plain, cfg, SERVE_REQUESTS)
-    diffs = [float((a - b)[:cfg.vocab].abs().max())
-             for a, b in zip(auto["first_logits"], plain["first_logits"])]
-    delta = max(diffs)
-    decided, agree = 0, 0
-    for a_req, p_req, row in zip(auto["reqs"], plain["reqs"],
-                                 plain["first_logits"]):
-        top2 = torch.topk(row[:cfg.vocab], 2).values
-        if float(top2[0] - top2[1]) > 2 * delta:
-            decided += 1
-            assert a_req.tokens_out[0] == p_req.tokens_out[0], a_req.rid
-        agree += a_req.tokens_out[0] == p_req.tokens_out[0]
-    streams = sum(a.tokens_out == b.tokens_out
-                  for a, b in zip(auto["reqs"], plain["reqs"]))
+    margins = margin_rule(auto, plain, cfg)
     times, p_times = serve_times(auto), serve_times(plain)
     return {"phase": "serve_mamba", "entry": "repro_torch.serve.ServeEngine",
             "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
@@ -424,11 +488,72 @@ def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
                            **{k: p_times[k] for k in (
                                "wall_s", "prefill_ms_per_request",
                                "decode_ms_per_step")}},
-            "first_logit_max_abs_diff": delta,
-            "first_logit_max_abs_diff_per_request": diffs,
-            "first_tokens_decided_by_margin": decided,
-            "first_tokens_equal": int(agree),
-            "token_streams_equal": int(streams),
+            **margins,
+            "admission": {k: v for k, v in stats.items() if k != "lock"},
+            "seconds": time.perf_counter() - t0}
+
+
+def serve_griffin_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
+    """Serve the shared traffic plus the two long requests on
+    recurrentgemma-9b at full width through the RG-LRU kernel
+    (``scan="auto"``): each prefill launches it once per RG-LRU layer,
+    decode never.  Then the same prompts with ``scan="torch"``, the plain
+    loop in bf16, held to :func:`margin_rule`."""
+    prompts = serve_prompts(cfg, GRIFFIN_LONG)
+    n_req = len(prompts)
+    n_rglru = cfg.layer_kinds().count("rglru")
+
+    def run(scan, max_new):
+        return timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
+                           kernel, max_ctx=GRIFFIN_CTX, scan=scan)
+
+    t0 = time.perf_counter()
+    run("auto", 2)                      # warm-up: allocator, GEMM plans
+    torch.cuda.reset_peak_memory_stats()
+    auto = run("auto", SERVE_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    eng = auto["eng"]
+    check_served(auto, cfg, n_req)
+    assert auto["prefill_launches"] == [n_rglru] * n_req, \
+        auto["prefill_launches"]
+    # every launch came from a prefill: decode launched none
+    assert auto["launches"] == sum(auto["prefill_launches"]) \
+        == n_rglru * n_req, auto["launches"]
+    stats = eng.stats()
+    t_plain = time.perf_counter()
+    plain = run("torch", SERVE_NEW)
+    plain_s = time.perf_counter() - t_plain
+    assert plain["launches"] == 0, plain["launches"]
+    check_served(plain, cfg, n_req)
+    margins = margin_rule(auto, plain, cfg)
+    times, p_times = serve_times(auto), serve_times(plain)
+    n_short = SERVE_REQUESTS
+    prefill_ms = [1e3 * t for t in auto["prefill_s"]]
+    return {"phase": "serve_griffin", "entry": "repro_torch.serve.ServeEngine",
+            "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+            "rglru_layers": n_rglru, "d_model": cfg.d_model,
+            "lru_width": cfg.lru_width, "window": cfg.window,
+            "vocab": cfg.vocab,
+            "params": sum(v.numel() for v in _leaves(params)),
+            "param_count_formula": cfg.param_count(),
+            "requests": n_req, "new_tokens": SERVE_NEW,
+            "prompt_lengths": [len(p) for p in prompts],
+            "lanes": SERVE_LANES, "max_ctx": GRIFFIN_CTX,
+            "gate": stats["lock"], "prefills": eng.prefill_count,
+            "decode_steps": eng.step_count,
+            "rglru_launches": auto["launches"], "decode_rglru_launches": 0,
+            **times, "prefill_ms": prefill_ms,
+            "prefill_ms_per_short_request": float(np.mean(
+                prefill_ms[:n_short])),
+            "prefill_ms_long": prefill_ms[n_short:],
+            "peak_memory_bytes": peak,
+            "plain_scan": {"requests": n_req, "seconds": plain_s,
+                           **{k: p_times[k] for k in (
+                               "wall_s", "prefill_ms_per_request",
+                               "decode_ms_per_step")},
+                           "prefill_ms_long": [1e3 * t for t in
+                                               plain["prefill_s"][n_short:]]},
+            **margins,
             "admission": {k: v for k, v in stats.items() if k != "lock"},
             "seconds": time.perf_counter() - t0}
 
@@ -468,16 +593,20 @@ def small_model_phase(dev, cfg, model, kernel, launches_per_pass) -> dict:
              (torch.tensor([[7], [11]]), torch.tensor([41, 18]))]
 
     def grow(cache):
-        """The prefill cache with room for 40 more positions in its
-        sequence leaves (keys and values); state leaves stay as they are."""
-        def more(k, v, dim):
-            if k not in ("k", "v"):
+        """The prefill cache with room for 40 more positions in the keys
+        and values of global attention layers; a sliding-window layer's
+        ring (the prompt is longer than the window) and state leaves stay
+        as they are."""
+        def more(kind, k, v, dim):
+            if kind != "global" or k not in ("k", "v"):
                 return v
             return torch.cat([v, torch.zeros_like(v)], dim=dim)
-        return {"stack": {j: {k: more(k, v, 2) for k, v in slot.items()}
+        return {"stack": {j: {k: more(cfg.layer_pattern[int(j[4:])], k, v, 2)
+                              for k, v in slot.items()}
                           for j, slot in cache["stack"].items()},
-                "tail": [{k: more(k, v, 1) for k, v in layer.items()}
-                         for layer in cache["tail"]]}
+                "tail": [{k: more(kind, k, v, 1) for k, v in layer.items()}
+                         for kind, layer in zip(cfg.tail_kinds,
+                                                cache["tail"])]}
 
     def prefill_and_steps(p, device):
         counts = []
@@ -609,6 +738,122 @@ def scan_phase(dev, kernel, ref) -> dict:
                       "bound_by": bound_by}}
 
 
+def rglru_cases(dev) -> list:
+    """(name, float32 (a, b, h0) on the card, dtype) of the RG-LRU check:
+    recurrentgemma-9b's full-width prefills (L 256 and 2,600, D 4,096) in
+    bf16 and float32, the reference tests' shapes, L 1, 31 and 65, D 20,
+    70 and 129 (ragged), a batch of 3 with h0 per sequence and of 2 with
+    h0 shared, and mixed dtypes (float32 a, bf16 b and h0)."""
+    rng = np.random.default_rng(22)
+
+    def draw(L, D, lead=(), h0=None):
+        arrays = [rng.uniform(0.3, 0.999, size=lead + (L, D)),
+                  rng.normal(size=lead + (L, D)),
+                  None if h0 is None else rng.normal(size=h0)]
+        return [None if a is None else torch.from_numpy(
+            a.astype(np.float32)).to(dev) for a in arrays]
+
+    cases = [(f"prefill_L{L}_D4096_bf16", draw(L, 4096), "bf16")
+             for L in GRIFFIN_PREFILL_L]
+    cases += [("prefill_L256_D4096_f32", draw(256, 4096), "f32")]
+    cases += [(f"L{L}_D{D}_{dt}", draw(L, D), dt)
+              for L, D, dt in ((16, 8, "f32"), (100, 96, "f32"),
+                               (256, 256, "f32"), (33, 20, "f32"),
+                               (128, 64, "bf16"), (1, 20, "f32"),
+                               (31, 70, "bf16"), (65, 129, "f32"))]
+    cases += [("batch3_h0_per_seq", draw(40, 24, (3,), (3, 24)), "f32"),
+              ("batch2_h0_shared", draw(40, 24, (2,), (24,)), "bf16"),
+              ("mixed_dtypes", draw(50, 30, (), (30,)), "mixed")]
+    return cases
+
+
+def outside_one_ulp(got, want) -> float:
+    """Share of ``got``'s elements more than one ulp of its dtype (rtol =
+    the dtype's eps, atol 1e-6) from the float32 ``want`` rounded to that
+    dtype."""
+    r = want.to(got.dtype).float()
+    limit = 1e-6 + torch.finfo(got.dtype).eps * r.abs()
+    return float(((got.float() - r).abs() > limit).float().mean())
+
+
+def rglru_phase(dev, kernel, ref) -> dict:
+    """The RG-LRU kernel against the plain loop on float32 casts of its
+    inputs (rtol = atol = 1e-5 for float32 inputs, 5e-2 otherwise), and
+    within one ulp of the output's dtype of that loop rounded to it: a
+    float32 state rounds only at the output.  At both full-width bf16
+    prefills the bf16-state loop must fall outside that ulp limit, so the
+    limit tells the two states apart.  Also the h0 threading, and the
+    kernel's time and bound at both full-width prefills."""
+    t0 = time.perf_counter()
+    sets = []
+    cases = rglru_cases(dev)
+    for name, f32_args, dtype in cases:
+        args = [None if a is None else a.to(torch.bfloat16)
+                if dtype == "bf16" or (dtype == "mixed" and i > 0) else a
+                for i, a in enumerate(f32_args)]
+        y, h = kernel.rglru_scan(*args)
+        torch.cuda.synchronize()
+        assert y.dtype == h.dtype == args[0].dtype, name
+        ry, rh = ref.rglru_scan_ref(*(None if a is None else a.float()
+                                      for a in args))
+        tol = 1e-5 if dtype == "f32" else 5e-2
+        for got, want in ((y, ry), (h, rh)):
+            assert bool(torch.isfinite(got).all()), name
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                       msg=name)
+            assert outside_one_ulp(got, want) == 0.0, name
+        sets.append({"set": name, "shape": list(args[0].shape),
+                     "dtype": dtype, "tolerance": tol,
+                     "max_abs_err": max(float((y.float() - ry).abs().max()),
+                                        float((h.float() - rh).abs().max())),
+                     "max_abs_err_rounded": max(
+                         float((y.float() - ry.to(y.dtype).float()).abs()
+                               .max()),
+                         float((h.float() - rh.to(h.dtype).float()).abs()
+                               .max()))})
+    # h0 threads through: two halves equal one scan (float32, L 100)
+    a, b, _ = cases[len(GRIFFIN_PREFILL_L) + 2][1]
+    y_full, h_full = ref.rglru_scan_ref(a, b)
+    y_a, h_a = kernel.rglru_scan(a[:37], b[:37])
+    y_b, h_b = kernel.rglru_scan(a[37:], b[37:], h_a)
+    torch.testing.assert_close(torch.cat([y_a, y_b]), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h_b, h_full, rtol=1e-5, atol=1e-5)
+    sets.append({"set": "two_halves_L100", "tolerance": 1e-5,
+                 "max_abs_err": max(
+                     float((torch.cat([y_a, y_b]) - y_full).abs().max()),
+                     float((h_b - h_full).abs().max()))})
+    # time and bound at both full-width prefills, bf16 as the serve runs it
+    timed = {}
+    for (name, f32_args, _), L in zip(cases, GRIFFIN_PREFILL_L):
+        a, b = (t.to(torch.bfloat16) for t in f32_args[:2])
+        ms = launch_ms(lambda: kernel.rglru_scan(a, b))
+        device_ms = profiled_ms(lambda: kernel.rglru_scan(a, b),
+                                "rglru_scan_kernel")
+        plain_ms = launch_ms(lambda: ref.rglru_scan_ref(a, b), launches=1,
+                             repeats=3)
+        out = kernel.rglru_scan(a, b)
+        ry, _ = ref.rglru_scan_ref(a.float(), b.float())
+        bf16_state = outside_one_ulp(ref.rglru_scan_ref(a, b)[0], ry)
+        assert outside_one_ulp(out[0], ry) == 0.0 < bf16_state, name
+        # a and b read once, y and h_final written once (no h0 is read);
+        # one multiply and one add per element
+        bound, bound_by = bound_ms(nbytes((a, b)) + nbytes(out),
+                                   2 * a.numel())
+        timed[f"L{L}"] = {"shape": list(a.shape), "dtype": "bf16", "ms": ms,
+                          "device_ms": device_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "bf16_state_loop_outside_one_ulp": bf16_state}
+    return {"phase": "rglru_kernel_vs_plain",
+            "tolerance": "rtol=atol=1e-5 (float32 inputs), 5e-2 (bf16); "
+                         "one ulp of the output's dtype from the float32 "
+                         "loop rounded to it",
+            "threads_per_block": kernel.THREADS,
+            "chunk_steps": kernel.CHUNK,
+            "seconds": time.perf_counter() - t0, "sets": sets,
+            "timed": timed}
+
+
 def check_claims(by: dict) -> None:
     """The fig3 inequalities of tests/test_sim_paper_claims.py."""
     for T in (1, 2, 4):
@@ -648,6 +893,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru import ref as rglru_ref
     from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
     from repro_torch.kernels.ticket_dispatch import ref as ticket_ref
     from repro_torch.models import model
@@ -678,7 +925,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    libraries = ["lockvm", "ticket_dispatch", "mamba_scan"]
+    libraries = ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan"]
     _build.load_libraries(libraries)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "")
@@ -808,6 +1055,7 @@ def main() -> int:
         dev, small, model, ticket_kernel, [small.n_layers] * 3)
     emit(served)
     del params, logits
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 7. the scan kernel against its plain version
@@ -827,6 +1075,29 @@ def main() -> int:
     mamba["small_model"] = small_model_phase(dev, small, model, scan_kernel,
                                              [small.n_layers, 0, 0])
     emit(mamba)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 9. the RG-LRU kernel against its plain version
+    rglru = rglru_phase(dev, rglru_kernel, rglru_ref)
+    emit(rglru)
+
+    # ---- 10. serve recurrentgemma-9b at full width
+    t0 = time.perf_counter()
+    gcfg = get_config(GRIFFIN_ARCH)
+    params = model.init_params(gcfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    griffin = serve_griffin_phase(dev, gcfg, params, ServeEngine,
+                                  rglru_kernel)
+    griffin["init_params_s"] = init_s
+    small = gcfg.reduced()
+    griffin["small_model"] = small_model_phase(
+        dev, small, model, rglru_kernel,
+        [small.layer_kinds().count("rglru"), 0, 0])
+    emit(griffin)
     del params
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
@@ -866,7 +1137,24 @@ def main() -> int:
         "ms": scan["timed"]["ms"], "plain_ms": scan["timed"]["plain_ms"],
         "bound_ms": scan["timed"]["bound_ms"],
         "bound_by": scan["timed"]["bound_by"], "library_ms": None,
-        "timed_on": "falcon-mamba-7b prefill: L 256, D 8192, N 16, bf16"}]}))
+        "timed_on": "falcon-mamba-7b prefill: L 256, D 8192, N 16, bf16"}, {
+        "name": "rglru_scan_run", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:94",
+        "launches": griffin["rglru_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in rglru["sets"]),
+        "max_abs_err_float32": max(c["max_abs_err"] for c in rglru["sets"]
+                                   if c["tolerance"] == 1e-5),
+        "ms": rglru["timed"]["L256"]["ms"],
+        "device_ms": rglru["timed"]["L256"]["device_ms"],
+        "plain_ms": rglru["timed"]["L256"]["plain_ms"],
+        "bound_ms": rglru["timed"]["L256"]["bound_ms"],
+        "bound_by": rglru["timed"]["L256"]["bound_by"], "library_ms": None,
+        "timed_on": "recurrentgemma-9b prefill: L 256, D 4096, bf16",
+        "L2600_ms": rglru["timed"]["L2600"]["ms"],
+        "L2600_device_ms": rglru["timed"]["L2600"]["device_ms"],
+        "L2600_plain_ms": rglru["timed"]["L2600"]["plain_ms"],
+        "L2600_bound_ms": rglru["timed"]["L2600"]["bound_ms"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

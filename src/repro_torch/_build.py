@@ -13,9 +13,11 @@ side, so that no constant is typed a second time: the lockVM's opcodes,
 register count, layout, cost indices, ``INF``, histogram size and fault
 kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), the
 ticket kernel's block size and shared-memory limit
-(:mod:`repro_torch.kernels.ticket_dispatch.kernel`), and the selective
+(:mod:`repro_torch.kernels.ticket_dispatch.kernel`), the selective
 scan's block size, chunk, state sizes and input dtype bits
-(:mod:`repro_torch.kernels.mamba_scan.kernel`).  A library's name
+(:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's block
+size, load-ahead chunk and input dtype bits
+(:mod:`repro_torch.kernels.rglru.kernel`).  A library's name
 carries a hash of its sources and header, so an edit rebuilds and an
 unchanged tree reuses the earlier build.  :func:`load_libraries` starts one
 ``nvcc`` per library that is missing, all at once, and waits for them all.
@@ -84,6 +86,17 @@ def mamba_constants_header() -> str:
                       for name, bit in kernel.BF16_BITS.items()])
 
 
+def rglru_constants_header() -> str:
+    """The C header of the RG-LRU scan kernel's launch constants."""
+    from .kernels.rglru import kernel
+
+    return _header("repro_torch.kernels.rglru.kernel",
+                   [("RG_THREADS", kernel.THREADS),
+                    ("RG_CHUNK", kernel.CHUNK)]
+                   + [(f"RG_BF16_{name.upper()}", bit)
+                      for name, bit in kernel.BF16_BITS.items()])
+
+
 def _header(origin: str, defs) -> str:
     lines = [f"// Generated by repro_torch/_build.py from {origin}.",
              "#pragma once"]
@@ -98,6 +111,8 @@ KERNELS = {
                         ticket_constants_header),
     "mamba_scan": (("mamba_scan.cu", "mamba_scan_kernel.cuh"),
                    mamba_constants_header),
+    "rglru_scan": (("rglru_scan.cu", "rglru_scan_kernel.cuh"),
+                   rglru_constants_header),
 }
 
 

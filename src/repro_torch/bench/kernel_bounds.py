@@ -1,25 +1,26 @@
 """Least time one H100 SXM could take for the work of the two recurrent
 scans, at the shapes their serve paths give them: the Mamba-1 selective
-scan, ported as ``csrc/mamba_scan.cu`` (``chip_smoke.py`` computes the same
-bound from its own inputs beside the kernel's time), and the RG-LRU scan,
-still to port.
+scan (``csrc/mamba_scan.cu``) and the RG-LRU scan (``csrc/rglru_scan.cu``).
+``chip_smoke.py`` computes the same bounds from its own inputs beside the
+kernels' times.
 
     PYTHONPATH=src python -m repro_torch.bench.kernel_bounds
 
 The bound is the larger of the bytes the function must move (each input
 read once, each output written once) over the card's memory rate and its
 operations over the card's 32-bit rate outside the tensor cores (NVIDIA's
-data sheet, 700 W part).  Shapes are one prefill of a 256-token prompt
-(the longest the serve traffic of ``chip_smoke.py`` draws), per layer and
-per sequence, in the configs' bf16:
+data sheet, 700 W part).  Shapes are one prefill, per layer and per
+sequence, in the configs' bf16: of a 256-token prompt (the longest of the
+shared serve traffic of ``chip_smoke.py``) for both scans, and of the
+2,600-token prompt its Griffin serve adds for the RG-LRU scan.  A prefill
+starts from a zero state, so neither kernel reads an h0:
 
 * the Mamba-1 selective scan (reference ``repro/kernels/mamba_scan``), per
   (t, d, n) ``exp(dt·A)``, ``dt·x·B``, the update of h and its product
   with C — seven operations; inputs x, dt (L, D), A (D, N), B, C (L, N),
-  D_skip (D,) — a prefill starts from a zero state, so no h0 is read;
-  outputs y (L, D) and h (D, N);
+  D_skip (D,); outputs y (L, D) and h (D, N);
 * the RG-LRU scan (reference ``repro/kernels/rglru``), per (t, d) one
-  multiply-add; inputs a, b (L, D), h0 (D,); outputs y (L, D), h (D,).
+  multiply and one add; inputs a, b (L, D); outputs y (L, D), h (D,).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..configs import get_config
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 PROMPT = 256
+LONG_PROMPT = 2600
 ELEM = 2  # bf16
 
 
@@ -47,7 +49,7 @@ def mamba_scan(L: int, D: int, N: int) -> dict:
 
 
 def rglru_scan(L: int, D: int) -> dict:
-    return _row("_rglru_kernel", f"L={L} D={D}", ELEM * (3 * L * D + 2 * D),
+    return _row("_rglru_kernel", f"L={L} D={D}", ELEM * (3 * L * D + D),
                 2 * L * D)
 
 
@@ -62,7 +64,8 @@ def main() -> list:
     griffin = get_config("recurrentgemma-9b")
     rows = [dict(mamba_scan(PROMPT, mamba.d_inner, mamba.ssm_state),
                  arch=mamba.name),
-            dict(rglru_scan(PROMPT, griffin.lru_width), arch=griffin.name)]
+            *(dict(rglru_scan(L, griffin.lru_width), arch=griffin.name)
+              for L in (PROMPT, LONG_PROMPT))]
     for row in rows:
         print(json.dumps(row))
     return rows

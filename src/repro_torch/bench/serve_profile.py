@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.bench.serve_profile [--arch NAME] [--out DIR]
 
 ``--arch`` names the model served (``granite-moe-1b-a400m`` unless given;
-``falcon-mamba-7b`` the Mamba path).  Up to two measurements, each printed
+``falcon-mamba-7b`` the Mamba path, ``recurrentgemma-9b`` the Griffin
+path).  Up to two measurements, each printed
 as one JSON line:
 
 * ``ticket_call``: the host's cost of one call of the ticket-dispatch
@@ -64,7 +65,8 @@ SPANS = ("serve.prefill", "serve.step")
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
                 "cuLaunchKernel")
 # the port's kernels, by the name of their __global__ function
-PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel")
+PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel",
+                "rglru_scan_kernel")
 
 
 def _device_events(prof):

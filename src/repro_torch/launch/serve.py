@@ -10,7 +10,10 @@ On the CPU with a reduced config::
         --arch granite-moe-1b-a400m --reduced --device cpu
 
 Any ported decoder serves the same way: ``--arch falcon-mamba-7b`` is the
-Mamba-1 stack, whose prefills run the selective-scan kernel on the GPU.
+Mamba-1 stack, whose prefills run the selective-scan kernel on the GPU;
+``--arch recurrentgemma-9b`` the Griffin hybrid (RG-LRU and sliding-window
+attention, 9.4 B parameters, 18.8 GB in bf16), whose prefills run the
+RG-LRU scan kernel on the GPU.
 
 The flags and the printout are the reference's (``repro.launch.serve``),
 plus ``--device``; weights are random, drawn from ``--seed``.

@@ -1,19 +1,22 @@
-"""Layer kinds of the attention, MoE and Mamba decoders: norms, RoPE, GQA
-attention (full, chunked, one-token decode against a KV cache), gated MLP,
-MoE with ticket dispatch, and the Mamba-1 mixer with its one-token decode.
+"""Layer kinds of the attention, MoE, Mamba and Griffin decoders: norms,
+RoPE, GQA attention (full, chunked, sliding-window, one-token decode
+against a KV cache or its ring), gated MLP, MoE with ticket dispatch, the
+Mamba-1 mixer and the RG-LRU mixer, each with its one-token decode.
 
 A port of the reference's ``repro/models/layers.py`` for the layer kinds
-the serve paths of granite-moe-1b-a400m, deepseek-7b and falcon-mamba-7b
-reach.  The functions keep its layouts: x (B, S, D); ``wq`` (D, H, hd),
-``wk``/``wv`` (D, KV, hd), ``wo`` (H, hd, D); experts' ``wi``/``wg``
-(E, D, ff) and ``wo`` (E, ff, D); KV caches (B, S, KV, hd); the Mamba
-state (B, d_inner, N) and conv tail (B, kw-1, d_inner).  Computation
-follows x's dtype; softmax and logit reductions run in float32 and are
-cast back where the reference casts.  Every product is
+the serve paths of granite-moe-1b-a400m, deepseek-7b, falcon-mamba-7b,
+recurrentgemma-9b, gemma3-1b and gemma2-27b reach.  The functions keep its
+layouts: x (B, S, D); ``wq`` (D, H, hd), ``wk``/``wv`` (D, KV, hd), ``wo``
+(H, hd, D); experts' ``wi``/``wg`` (E, D, ff) and ``wo`` (E, ff, D); KV
+caches (B, S, KV, hd); the Mamba state (B, d_inner, N) and conv tail
+(B, kw-1, d_inner); the RG-LRU state (B, w) and conv tail (B, kw-1, w).
+Computation follows x's dtype; softmax and logit reductions run in float32
+and are cast back where the reference casts.  Every product is
 ``torch.einsum``/``matmul``, as the reference leaves them to XLA; the
-kernels are the ticket dispatch inside :func:`moe` and the selective scan
-inside :func:`mamba_block`.  The reference's sharding constraints have no
-counterpart on one card and are dropped.
+kernels are the ticket dispatch inside :func:`moe`, the selective scan
+inside :func:`mamba_block` and the RG-LRU scan inside :func:`rglru_block`.
+The reference's sharding constraints have no counterpart on one card and
+are dropped.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import selective_scan
+from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import dispatch_combine_plan
 
 NEG_INF = -1e30   # the reference's mask value
@@ -132,19 +136,23 @@ def _attend_chunked(q, k, v, cfg: ArchConfig, *, causal: bool,
     return torch.cat(outs, dim=1)[:, :S]
 
 
-def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True):
-    """Full (global) attention over x (B, S, D); returns (out, (k, v)) with
-    the cache's KV heads un-expanded.  Long sequences (S > 2·Q_CHUNK) take
-    the chunked-query path so the live score tensor stays O(q_chunk · S)."""
-    B, S, _ = x.shape
+def _project(p, x, cfg: ArchConfig, positions):
+    """q, k, v of x (B, S, D) with RoPE on q and k, k and v expanded to H
+    heads, and the (k, v) the cache keeps with its KV heads un-expanded."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    kv_cache = (k, v)
-    k = _gqa_expand(k, cfg.n_heads)
-    v = _gqa_expand(v, cfg.n_heads)
+    return q, _gqa_expand(k, cfg.n_heads), _gqa_expand(v, cfg.n_heads), (k, v)
+
+
+def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True):
+    """Full (global) attention over x (B, S, D); returns (out, (k, v)) with
+    the cache's KV heads un-expanded.  Long sequences (S > 2·Q_CHUNK) take
+    the chunked-query path so the live score tensor stays O(q_chunk · S)."""
+    S = x.shape[1]
+    q, k, v, kv_cache = _project(p, x, cfg, positions)
     if S > 2 * Q_CHUNK:
         out = _attend_chunked(q, k, v, cfg, causal=causal)
     else:
@@ -155,6 +163,54 @@ def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
 
 
+def attention_local(p, x, cfg: ArchConfig, positions):
+    """Sliding-window attention over x (B, S, D), chunked so the cost is
+    O(S · 2w), never S×S; returns (out, (k, v)) with the cache's KV heads
+    un-expanded.
+
+    With S ≤ w it is plain causal attention.  Otherwise q, k, v are padded
+    to a multiple of the window w and cut into chunks of w; each query
+    chunk attends to itself and the previous chunk under the band
+    ``qi - w < ki ≤ qi`` (chunk 0's previous keys are masked), and the
+    output is cut back to S.  Scores are float32, softcapped, masked to
+    -1e30 and softmaxed in float32, as in the reference.
+    """
+    B, S, _ = x.shape
+    w = min(cfg.window, S)
+    q, k, v, kv_cache = _project(p, x, cfg, positions)
+    if S <= w:
+        out = _attend(q, k, v, _causal_mask(S, S, device=x.device), cfg)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
+
+    pad = (-S) % w
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    Sp = S + pad
+    nc = Sp // w
+    H, hd = cfg.n_heads, cfg.head_dim
+    qc = q.reshape(B, nc, w, H, hd)
+    kc = k.reshape(B, nc, w, H, hd)
+    vc = v.reshape(B, nc, w, H, hd)
+    # keys of chunk i: chunks (i-1, i); chunk -1 is zeros, masked out
+    k_prev = F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    v_prev = F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    kk = torch.cat([k_prev, kc], dim=2)                 # (B, nc, 2w, H, hd)
+    vv = torch.cat([v_prev, vc], dim=2)
+
+    scale = hd ** -0.5
+    scores = torch.einsum("bnqhd,bnkhd->bnhqk", qc, kk).float() * scale
+    scores = softcap(scores, cfg.attn_softcap)
+    qi = torch.arange(w, device=x.device)[:, None] + w  # within the 2w span
+    ki = torch.arange(2 * w, device=x.device)[None, :]
+    band = (ki <= qi) & (ki > qi - w)                   # causal, width w
+    first = torch.arange(nc, device=x.device)[:, None, None] == 0
+    valid = band[None] & ~(first & (ki < w)[None])      # chunk 0: no prev
+    probs = _masked_softmax(scores, valid[:, None], q.dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, vv)
+    out = out.reshape(B, Sp, H, hd)[:, :S]
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
+
+
 def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
                      window: int = 0):
     """One-token decode against a KV cache.
@@ -162,15 +218,15 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     x (B, 1, D); cache_k/v (B, S_ctx, KV, hd); ``pos`` a python int or a
     0-d tensor (every lane at one position) or a (B,) tensor (ragged lanes,
     serving): the number of tokens so far.  The new key and value are
-    written **in place** into ``cache_k``/``cache_v`` at ``pos`` (clamped
-    into the cache, as the reference's ``dynamic_update_slice`` clamps), and
-    the same tensors are returned: (out, cache_k, cache_v).  GQA runs as
-    grouped einsums; the cache is never expanded to H heads.
+    written **in place** into ``cache_k``/``cache_v`` and the same tensors
+    are returned: (out, cache_k, cache_v).  A full-length cache takes them
+    at ``pos`` (clamped into the cache, as the reference's
+    ``dynamic_update_slice`` clamps).  ``window > 0`` (sliding-window
+    layers) makes the cache a ring: the slot is ``pos % S_ctx``, and
+    before the ring has wrapped only slots up to ``pos`` are live, after
+    it every slot holds a position within the window.  GQA runs as grouped
+    einsums; the cache is never expanded to H heads.
     """
-    if window:
-        raise NotImplementedError(
-            "sliding-window decode (the ring cache of 'local' layers) is not "
-            "ported yet: ROADMAP, kernel 4 with attention_local")
     B, _, D = x.shape
     S_ctx = cache_k.shape[1]
     KV, H, hd = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
@@ -184,7 +240,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.mrope_sections)
     lanes = torch.arange(B, device=x.device)
-    slot = pos_b.clamp(0, S_ctx - 1)
+    slot = pos_b % S_ctx if window else pos_b.clamp(0, S_ctx - 1)
     cache_k[lanes, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[lanes, slot] = v_new[:, 0].to(cache_v.dtype)
 
@@ -194,7 +250,8 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
                           cache_k.to(x.dtype)).float() * scale
     scores = softcap(scores, cfg.attn_softcap)
     ki = torch.arange(S_ctx, device=x.device)[None, None, None, None, :]
-    mask = ki <= pos_b[:, None, None, None, None]
+    pm = pos_b[:, None, None, None, None]
+    mask = (ki <= pm) | (pm >= S_ctx) if window else ki <= pm
     probs = _masked_softmax(scores, mask, x.dtype)
     out = torch.einsum("bgmqs,bsgd->bqgmd", probs, cache_v.to(x.dtype))
     out = out.reshape(B, 1, H, hd)
@@ -385,3 +442,70 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
     y = (y * F.silu(z[:, 0]))[:, None, :]
     out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
     return out, new_ssm, window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
+RGLRU_C = 8.0
+
+
+def _rglru_gates(p, conv, dtype):
+    """a and b of the recurrence from the conv'd input (..., w), as the
+    reference computes them: a = exp(-c·softplus(Λ)·σ(r)) in float32 from
+    the float32 ``lam``, **rounded to x's dtype before it makes b**;
+    b = sqrt(max(1 - a², 1e-12)) (float32, then rounded) · σ(i)·conv."""
+    gates = torch.einsum("...w,wk->...k", conv, p["w_rg"])
+    r, i = gates.chunk(2, dim=-1)
+    a = torch.exp(-RGLRU_C * softplus(p["lam"].float())
+                  * torch.sigmoid(r.float())).to(dtype)
+    af = a.float()
+    b = torch.sqrt(torch.clamp_min(1.0 - af * af, 1e-12)).to(dtype) * (
+        torch.sigmoid(i) * conv)
+    return a, b
+
+
+def rglru_block(p, x, cfg: ArchConfig, h0=None, scan: str = "auto"):
+    """Griffin recurrent mixer over (B, S, D): projection, depthwise causal
+    conv, RG-LRU, gate, projection.  Returns (y, (h_final, conv_tail)).
+
+    The gate is the tanh-approximate GELU (``jax.nn.gelu``'s default).  The
+    conv pads kw-1 zeros in front and its tail (the decode state) is the
+    last kw-1 rows of the padded input, so a prompt shorter than kw-1
+    leaves zeros in it.  ``scan`` is the RG-LRU scan's mode
+    (:func:`repro_torch.kernels.rglru.ops.rglru_scan`: ``"auto"`` the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors; ``"torch"``
+    the plain version); the batch is one launch where the reference maps
+    ``vmap`` over it.  With ``h0`` None the scan starts from zeros in x's
+    dtype and the kernel reads no h0.
+    """
+    B, S, D = x.shape
+    kw = cfg.conv_width
+    xb = torch.einsum("bsd,dw->bsw", x, p["w_x"])               # (B,S,w)
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]),
+                  approximate="tanh")
+    xpad = F.pad(xb, (0, 0, kw - 1, 0))
+    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=-1)
+    conv = torch.einsum("bswk,wk->bsw", shifted, p["conv_w"]) + p["conv_b"]
+    a, b = _rglru_gates(p, conv, x.dtype)
+    y, h_final = rglru_scan(a, b, h0, mode=scan)
+    y = y * gate
+    out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    return out, (h_final, xpad[:, -(kw - 1):])
+
+
+def rglru_decode(p, x, h, conv_state, cfg: ArchConfig):
+    """One-token RG-LRU step, plain PyTorch as in the reference (no scan
+    kernel).  x (B, 1, D); h (B, w); conv_state (B, kw-1, w).  Returns (y,
+    new_h, new_conv); the states are new tensors (the caller writes them
+    into its cache)."""
+    xb = torch.einsum("bsd,dw->bsw", x, p["w_x"])               # (B,1,w)
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]),
+                  approximate="tanh")
+    window = torch.cat([conv_state, xb], dim=1)                 # (B,kw,w)
+    conv = torch.einsum("bkw,wk->bw", window, p["conv_w"]) + p["conv_b"]
+    a, b = _rglru_gates(p, conv, x.dtype)
+    h_new = a * h + b
+    y = (h_new * gate[:, 0])[:, None, :]
+    out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    return out, h_new, window[:, 1:]

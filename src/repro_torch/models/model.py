@@ -1,20 +1,23 @@
 """Model builder: parameter init, forward, prefill and one-token decode with
-a KV or SSM cache, for the attention decoders (dense and MoE) and the
-Mamba-1 stack.
+a KV, ring or recurrent-state cache, for the attention decoders (dense and
+MoE, full and sliding-window), the Mamba-1 stack and the Griffin hybrid.
 
 A port of the reference's ``repro/models/model.py`` for layer kinds
-``global`` and ``mamba``.  Parameters keep the reference's tree so that the
-two packages can compute with the same weights (:func:`params_from_numpy`):
+``global``, ``local``, ``mamba`` and ``rglru``.  Parameters keep the
+reference's tree so that the two packages can compute with the same
+weights (:func:`params_from_numpy`):
 ``{"embed", "final_norm", "stack": {"slot<j>": {name: (P, ...)}},
 "tail": [{name: ...}], "lm_head"?}`` with the layers of each slot of the
 layer pattern stacked over the P periods.  The reference scans over
 periods; here a Python loop walks them, indexing the stacked tensors.
 Caches keep the same tree: (P, B, S_ctx, KV, hd) ``k``/``v`` leaves for
-attention layers, (P, B, d_inner, N) ``ssm`` and (P, B, kw-1, d_inner)
-``conv`` leaves for Mamba layers.
+global attention layers, a ring of (P, B, min(S_ctx, window), KV, hd)
+``k``/``v`` for sliding-window (``local``) layers, (P, B, d_inner, N)
+``ssm`` and (P, B, kw-1, d_inner) ``conv`` leaves for Mamba layers, and
+(P, B, w) ``h`` and (P, B, kw-1, w) ``conv`` leaves for RG-LRU layers.
 
-Layer kinds ``rglru`` and ``local`` and the vision and audio frontends
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The vision and audio frontends raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -27,20 +30,13 @@ from ..device import resolve_device
 from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from . import layers as L
 
-_NOT_PORTED = {
-    "rglru": "kernel 4 (the RG-LRU scan) with the RG-LRU block, its decode "
-             "and recurrentgemma-9b serving",
-    "local": "kernel 4 with attention_local (sliding-window attention) and "
-             "recurrentgemma-9b serving",
-}
+KINDS = ("global", "local", "mamba", "rglru")
+# parameter inits kept in float32 whatever the config's dtype
+_FLOAT32_INITS = ("a_log", "lam")
 
 
 def _require_ported(kind: str, cfg: ArchConfig) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer kind {kind!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP, {_NOT_PORTED[kind]}")
-    if kind not in ("global", "mamba"):
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -95,9 +91,26 @@ def _mamba_layer_shapes(cfg: ArchConfig) -> dict:
             "D_skip": ((di,), "ones"), "out_proj": ((di, d), "normal")}
 
 
+def _rglru_layer_shapes(cfg: ArchConfig) -> dict:
+    """Name -> (shape, init) of one RG-LRU (Griffin recurrent) layer:
+    ``lam`` (Λ) is the reference's ``"lam"`` init, float32 whatever the
+    config's dtype; ``conv_b``, ``ln1`` and ``ln2`` zeros."""
+    d, w, kw, ff = cfg.d_model, cfg.lru_width, cfg.conv_width, cfg.d_ff
+    return {"ln1": ((d,), "zeros"), "ln2": ((d,), "zeros"),
+            "w_x": ((d, w), "normal"), "w_gate": ((d, w), "normal"),
+            "conv_w": ((w, kw), "normal"), "conv_b": ((w,), "zeros"),
+            "w_rg": ((w, 2 * w), "normal"), "lam": ((w,), "lam"),
+            "w_out": ((w, d), "normal"), "wi": ((d, ff), "normal"),
+            "wg": ((d, ff), "normal"), "wo_mlp": ((ff, d), "normal")}
+
+
 def _layer_shapes(kind: str, cfg: ArchConfig) -> dict:
-    return (_mamba_layer_shapes(cfg) if kind == "mamba"
-            else _attn_layer_shapes(cfg))
+    _require_ported(kind, cfg)
+    if kind == "mamba":
+        return _mamba_layer_shapes(cfg)
+    if kind == "rglru":
+        return _rglru_layer_shapes(cfg)
+    return _attn_layer_shapes(cfg)
 
 
 def _param_layout(cfg: ArchConfig) -> dict:
@@ -144,7 +157,9 @@ def param_shapes(cfg: ArchConfig) -> dict:
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                 device=None) -> dict:
     """Random parameters with the reference's shapes, scales and constant
-    inits (normal × 0.02, the rest as :func:`_mamba_layer_shapes` says),
+    inits (normal × 0.02, the rest as :func:`_mamba_layer_shapes` and
+    :func:`_rglru_layer_shapes` say; Λ from u ~ U(0.9, 0.999) as
+    log(expm1(-log(u) / c)), so that a^(1/c) spreads over (0.9, 0.999)),
     drawn from ``generator`` on ``device`` (``cuda`` unless named; it must
     be the generator's device).  The values are not the reference's: its
     ``jax.random`` keys draw other numbers."""
@@ -163,6 +178,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
             n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
                              device=device)
             return torch.log(n).expand(shape).contiguous()
+        if init == "lam":
+            u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                           device=device) * (0.999 - 0.9) + 0.9
+            return torch.log(torch.expm1(-torch.log(u) / L.RGLRU_C))
         value = {"zeros": 0.0, "ones": 1.0, "dt_bias": -4.6}[init]
         return torch.full(shape, value, dtype=dtype, device=device)
 
@@ -174,8 +193,8 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
     """The reference's parameter tree, as numpy arrays (``stack/slot<j>``
     stacked over periods, a ``tail`` list), as the port's tensors on
     ``device`` (``cuda`` unless named) in the config's dtype (or
-    ``dtype``); ``A_log`` stays float32, as in the reference.  Every shape
-    is checked against :func:`param_shapes`."""
+    ``dtype``); ``A_log`` and ``lam`` stay float32, as in the reference.
+    Every shape is checked against :func:`param_shapes`."""
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
 
@@ -191,7 +210,8 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
         if a.shape != tuple(shape):
             raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=torch.float32 if init == "a_log" else dtype)
+            device=device,
+            dtype=torch.float32 if init in _FLOAT32_INITS else dtype)
 
     return _build_tree(_param_layout(cfg), conv)
 
@@ -210,32 +230,58 @@ def _layers(params, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def _mixer_mlp(p, x, cfg: ArchConfig, dispatch: str):
-    """The layer's second half: norm, then MoE or the gated MLP."""
+def _mlp(p, x, cfg: ArchConfig):
+    """Norm, then the gated MLP, added to the residual."""
     h = L.rms_norm(p["ln2"], x, cfg.rms_eps)
+    return x + L.mlp({"wi": p["wi"], "wg": p["wg"], "wo": p["wo_mlp"]}, h,
+                     cfg)
+
+
+def _mixer_mlp(p, x, cfg: ArchConfig, dispatch: str):
+    """An attention layer's second half: norm, then MoE or the gated
+    MLP."""
     if cfg.n_experts:
+        h = L.rms_norm(p["ln2"], x, cfg.rms_eps)
         moe_out, aux = L.moe({"router": p["router"], "wi": p["wi"],
                               "wg": p["wg"], "wo": p["wo_mlp"]}, h, cfg,
                              dispatch)
         return x + moe_out, aux
-    out = L.mlp({"wi": p["wi"], "wg": p["wg"], "wo": p["wo_mlp"]}, h, cfg)
-    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp(p, x, cfg), torch.zeros((), dtype=torch.float32,
+                                        device=x.device)
+
+
+def _ring(t, window: int):
+    """A local layer's prefill keys or values (B, S, KV, hd) in the ring's
+    layout when S exceeds the window W: the last W positions, slot j
+    holding the position ≡ j (mod W), as decode writes ``pos % W``."""
+    S, W = t.shape[1], window
+    if S <= W:
+        return t
+    idx = S - W + (torch.arange(W, device=t.device) - S % W) % W
+    return t.index_select(1, idx)
 
 
 def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
                 dispatch: str = "auto", scan: str = "auto"):
     """One layer; returns (x, aux_loss, cache_entry).  ``dispatch`` is the
-    MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the selective
-    scan's (:func:`layers.mamba_block`)."""
+    MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the mode of
+    the recurrences' scans (the selective scan of :func:`layers.mamba_block`
+    and the RG-LRU scan of :func:`layers.rglru_block`)."""
     _require_ported(kind, cfg)
     h = L.rms_norm(p["ln1"], x, cfg.rms_eps)
+    no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mamba":
         out, (ssm, conv) = L.mamba_block(p, h, cfg, scan)
-        return (x + out, torch.zeros((), dtype=torch.float32,
-                                     device=x.device),
-                {"ssm": ssm, "conv": conv})
-    attn_out, (ck, cv) = L.attention_full(p, h, cfg, positions,
-                                          causal=cfg.causal)
+        return x + out, no_aux, {"ssm": ssm, "conv": conv}
+    if kind == "rglru":
+        out, (hf, conv) = L.rglru_block(p, h, cfg, scan=scan)
+        return _mlp(p, x + out, cfg), no_aux, {"h": hf, "conv": conv}
+    if kind == "local":
+        attn_out, (ck, cv) = L.attention_local(p, h, cfg, positions)
+        ck, cv = _ring(ck, cfg.window), _ring(cv, cfg.window)
+    else:
+        attn_out, (ck, cv) = L.attention_full(p, h, cfg, positions,
+                                              causal=cfg.causal)
     x, aux = _mixer_mlp(p, x + attn_out, cfg, dispatch)
     return x, aux, {"k": ck, "v": cv}
 
@@ -268,8 +314,9 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
             scan: str = "auto", collect_cache: bool = False):
     """Full forward pass over ``batch["tokens"]`` (B, S); returns
     (logits (B, S, V) float32, aux_loss, cache or None).  ``dispatch`` is
-    the MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the
-    selective scan's (:func:`layers.mamba_block`)."""
+    the MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the mode of
+    the selective scan (:func:`layers.mamba_block`) and of the RG-LRU scan
+    (:func:`layers.rglru_block`)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -311,8 +358,9 @@ def prefill(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
 def _decode_layer(kind: str, p, x, cache, pos, cfg: ArchConfig,
                   dispatch: str = "auto"):
     """One layer of one-token decode; the layer's cache entry is updated in
-    place (see :func:`layers.attention_decode`; the Mamba states are copied
-    into theirs)."""
+    place (see :func:`layers.attention_decode`, whose ring a ``local``
+    layer's window makes; the Mamba and RG-LRU states are copied into
+    theirs)."""
     _require_ported(kind, cfg)
     h = L.rms_norm(p["ln1"], x, cfg.rms_eps)
     if kind == "mamba":
@@ -321,7 +369,14 @@ def _decode_layer(kind: str, p, x, cache, pos, cfg: ArchConfig,
         cache["ssm"].copy_(ssm)
         cache["conv"].copy_(conv)
         return x + out, cache
-    out, k2, v2 = L.attention_decode(p, h, cache["k"], cache["v"], pos, cfg)
+    if kind == "rglru":
+        out, hf, conv = L.rglru_decode(p, h, cache["h"], cache["conv"], cfg)
+        cache["h"].copy_(hf)
+        cache["conv"].copy_(conv)
+        return _mlp(p, x + out, cfg), cache
+    out, k2, v2 = L.attention_decode(
+        p, h, cache["k"], cache["v"], pos, cfg,
+        window=cfg.window if kind == "local" else 0)
     x, _ = _mixer_mlp(p, x + out, cfg, dispatch)
     return x, {"k": k2, "v": v2}
 
@@ -332,8 +387,8 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
     tensor of per-lane positions (current lengths).  Returns (logits (B, V),
     cache): the cache tree is updated **in place** (the reference returns a
     new one from a donated buffer) and returned.  ``scan`` is checked but
-    launches nothing: the one-token Mamba step is plain PyTorch, as in the
-    reference."""
+    launches nothing: the one-token Mamba and RG-LRU steps are plain
+    PyTorch, as in the reference."""
     if scan not in SCAN_MODES:
         raise ValueError(f"unknown scan mode {scan!r}; options: "
                          f"{SCAN_MODES}")
@@ -351,20 +406,29 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
 def init_cache(cfg: ArchConfig, batch: int, s_ctx: int, dtype=None, *,
                device=None) -> dict:
     """A zero cache for ``batch`` lanes on ``device`` (``cuda`` unless
-    named): ``s_ctx`` positions of keys and values for attention layers,
-    the SSM state and conv tail for Mamba layers."""
+    named): ``s_ctx`` positions of keys and values for global attention
+    layers, a ring of min(``s_ctx``, window) for sliding-window layers (a
+    long context costs them only the window), the state and conv tail for
+    Mamba and RG-LRU layers."""
     _check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg)
-    kv = (batch, s_ctx, cfg.n_kv_heads, cfg.head_dim)
-    ssm = (batch, cfg.d_inner, cfg.ssm_state)
-    conv = (batch, cfg.ssm_conv - 1, cfg.d_inner)
+
+    def kv(s):
+        return (batch, s, cfg.n_kv_heads, cfg.head_dim)
+
+    shapes = {
+        "global": {"k": kv(s_ctx), "v": kv(s_ctx)},
+        "local": {"k": kv(min(s_ctx, cfg.window)),
+                  "v": kv(min(s_ctx, cfg.window))},
+        "mamba": {"ssm": (batch, cfg.d_inner, cfg.ssm_state),
+                  "conv": (batch, cfg.ssm_conv - 1, cfg.d_inner)},
+        "rglru": {"h": (batch, cfg.lru_width),
+                  "conv": (batch, cfg.conv_width - 1, cfg.lru_width)}}
 
     def zeros(kind, *lead):
-        shapes = ({"ssm": ssm, "conv": conv} if kind == "mamba"
-                  else {"k": kv, "v": kv})
         return {k: torch.zeros(lead + s, dtype=dtype, device=device)
-                for k, s in shapes.items()}
+                for k, s in shapes[kind].items()}
 
     return {"stack": ({f"slot{j}": zeros(kind, cfg.n_periods)
                        for j, kind in enumerate(cfg.layer_pattern)}

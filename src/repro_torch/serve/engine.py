@@ -10,13 +10,15 @@ multiple of ``pad_to``; recurrent archs at their exact length), one
 lane-packed KV/SSM cache updated in place, and a batched one-token decode
 step with per-lane positions that decodes every lane, finished ones
 included, as the reference does (their MoE routing takes expert capacity in
-the decode group; their Mamba state advances until admission overwrites
-the lane's row).  Inside every MoE layer each routing decision draws a
-FIFO ticket from its expert through the CUDA ticket-dispatch kernel
-(``dispatch="auto"`` on a GPU) or its plain version (``dispatch="torch"``,
-or on the CPU); every Mamba layer's prefill runs the selective scan through
-the CUDA scan kernel (``scan="auto"`` on a GPU) or its plain version
-(``scan="torch"``, or on the CPU).  A port of the reference's
+the decode group; their Mamba and RG-LRU states advance until admission
+overwrites the lane's row).  Inside every MoE layer each routing decision
+draws a FIFO ticket from its expert through the CUDA ticket-dispatch
+kernel (``dispatch="auto"`` on a GPU) or its plain version
+(``dispatch="torch"``, or on the CPU).  ``scan`` selects both recurrences
+alike: every Mamba layer's prefill runs the selective scan, and every
+RG-LRU layer's prefill the RG-LRU scan, through its CUDA kernel
+(``scan="auto"`` on a GPU) or its plain version (``scan="torch"``, or on
+the CPU); decode launches neither.  A port of the reference's
 ``repro/serve/engine.py``.
 """
 

@@ -5,9 +5,14 @@ finished lane is re-used by writing the new request's prefill cache into
 its row.  Leaves with a sequence axis (attention keys and values) are
 written over the prompt's positions only: stale data past the new position
 is masked by the decode attention (``ki <= pos``), so no explicit clearing
-is needed.  State leaves (a Mamba layer's SSM state and conv tail) have no
-sequence axis and are written whole, so a reused lane keeps nothing of the
-request it held before.
+is needed.  A sliding-window layer's ring takes the same write: a prompt
+no longer than the window fills slots [0, Sp) (slot = position), and a
+longer one arrives from the prefill already cut to the window's slots in
+ring order (``model.apply_layer``); before the ring wraps, decode masks
+the slots past its position as for a full cache.  State leaves (a Mamba
+layer's SSM state and conv tail, an RG-LRU layer's ``h`` and conv tail)
+have no sequence axis and are written whole, so a reused lane keeps
+nothing of the request it held before.
 """
 
 from __future__ import annotations

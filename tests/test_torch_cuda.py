@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the lockVM, the MoE ticket dispatch and the
-Mamba selective scan): their build, their wrappers and their entry points.
+"""The port's CUDA kernels (the lockVM, the MoE ticket dispatch, the Mamba
+selective scan and the RG-LRU scan): their build, their wrappers and their
+entry points.
 
 Runs here on the CPU for what does not need a card — the build commands and
 the generated constants headers, the parallel build, the device rules of
@@ -15,7 +16,10 @@ keeps its state in float32: it is held to the plain loop on float32 casts
 of its inputs within rtol = atol = 1e-5 for float32 inputs and 5e-2 for
 bf16 (the reference's tolerances for its kernel); the two-layer Mamba
 serve in float32 gives the plain path's tokens, with first-token logits
-within 1e-4 (float32 sums in other orders across 4,096-wide layers).
+within 1e-4 (float32 sums in other orders across 4,096-wide layers).  The
+RG-LRU kernel keeps its state in float32 too and is held to the plain
+loop the same way; the three-layer recurrentgemma serve in float32 gives
+the plain path's tokens and first-token logits within 1e-4.
 """
 
 import dataclasses
@@ -32,6 +36,8 @@ from repro_torch import _build
 from repro_torch.configs import get_config
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_ref
+from repro_torch.kernels.rglru import kernel as rglru_kernel
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.ticket_dispatch import assign_slots, dispatch_ref
 from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
 from repro_torch.models.layers import moe_capacity
@@ -268,6 +274,37 @@ def test_scan_build_command_and_generated_header(tmp_path):
             assert re.search(rf"bf16 & {name}\b", src), name
 
 
+def test_rglru_build_command_and_generated_header(tmp_path):
+    header = tmp_path / "h.h"
+    cmd = _build.build_command("rglru_scan", tmp_path / "lib.so", header)
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "--use_fast_math" not in cmd
+    csrc = _build.CSRC
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".h"))]
+    assert inputs == [str(header), str(csrc / "rglru_scan.cu")]
+    assert cmd[cmd.index("-I") + 1] == str(csrc)
+    srcs = _build.sources("rglru_scan")
+    assert [p.name for p in srcs] == ["rglru_scan.cu",
+                                      "rglru_scan_kernel.cuh"]
+    for path in srcs:
+        assert path.is_file() and path.parent == csrc
+        for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert (csrc / inc).is_file(), inc
+    defs = {k: int(v) for k, v in re.findall(
+        r"#define (\w+) (-?\d+)", _build.rglru_constants_header())}
+    assert defs == {"RG_THREADS": rglru_kernel.THREADS,
+                    "RG_CHUNK": rglru_kernel.CHUNK, "RG_BF16_A": 1,
+                    "RG_BF16_B": 2, "RG_BF16_H0": 4}
+    assert sorted(rglru_kernel.BF16_BITS.values()) == [1, 2, 4]
+    assert rglru_kernel.THREADS % 32 == 0 and 32 <= rglru_kernel.THREADS \
+        <= 128
+    src = "".join(p.read_text() for p in srcs)
+    for name in defs:
+        assert not re.search(rf"#define\s+{name}\b", src), name
+        if name.startswith("RG_BF16_"):
+            assert re.search(rf"bf16 & {name}\b", src), name
+
+
 def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     """One nvcc per missing library, all started before any is waited on."""
     log = tmp_path / "log"
@@ -283,16 +320,16 @@ def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "build_logs", {})
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Path(path))
     names = list(_build.KERNELS)
-    assert names == ["lockvm", "ticket_dispatch", "mamba_scan"]
+    assert names == ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan"]
     libs = _build.load_libraries(names)
-    assert log.read_text().split() == ["start"] * 3 + ["end"] * 3
+    assert log.read_text().split() == ["start"] * 4 + ["end"] * 4
     assert [p.name.split("-")[0] for p in libs] == [f"lib{n}" for n in names]
     assert all(p.exists() for p in libs)
     assert set(_build.build_logs) == set(names)
     # a second call builds nothing: the hashed libraries are reused
     monkeypatch.setattr(_build, "_libs", {})
     assert _build.load_libraries(["ticket_dispatch"]) == libs[1:2]
-    assert log.read_text().split().count("start") == 3
+    assert log.read_text().split().count("start") == 4
 
 
 def test_cell_state_bytes_fits_fig3_in_shared_memory():
@@ -564,6 +601,134 @@ def test_two_layer_falcon_mamba_serve_kernel_matches_plain_scan(
         eng.run()
         assert scan_kernel.launches - before == (
             cfg.n_layers * eng.prefill_count if scan == "auto" else 0)
+        out[scan] = [r.tokens_out for r in reqs]
+        first[scan] = [lg for lg in logits if lg.shape[0] == 1]
+        assert all(len(t) == 8 for t in out[scan])
+    assert len(first["auto"]) == len(prompts)
+    for a, b in zip(first["auto"], first["torch"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert out["auto"] == out["torch"]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan kernel and the Griffin serve path (CUDA device only)
+# ---------------------------------------------------------------------------
+def _rglru_cases():
+    """(name, (a, b, h0) as float32 numpy, dtype): recurrentgemma-9b's
+    full-width prefills (L 256 and 2,600, D 4,096) in bf16 and float32,
+    tests/test_kernels.py's shapes, L 1 and 33, D 20 (ragged), a batch of
+    3 with h0 per sequence and of 2 with h0 shared, and mixed dtypes
+    (float32 a, bf16 b and h0)."""
+    rng = np.random.default_rng(0)
+
+    def draw(L, D, lead=(), h0=None):
+        return [rng.uniform(0.3, 0.999, size=lead + (L, D)).astype(
+                    np.float32),
+                rng.normal(size=lead + (L, D)).astype(np.float32),
+                None if h0 is None else rng.normal(size=h0).astype(
+                    np.float32)]
+
+    cases = [("prefill_L256_bf16", draw(256, 4096), "bf16"),
+             ("prefill_L2600_bf16", draw(2600, 4096), "bf16"),
+             ("prefill_L256_f32", draw(256, 4096), "f32")]
+    cases += [(f"L{L}_D{D}", draw(L, D), dt) for L, D, dt in (
+        (16, 8, "f32"), (100, 96, "f32"), (256, 256, "f32"), (33, 20, "f32"),
+        (128, 64, "bf16"), (1, 20, "f32"), (31, 70, "bf16"), (65, 129,
+                                                             "f32"))]
+    cases += [("batch3_h0_per_seq", draw(40, 24, (3,), (3, 24)), "f32"),
+              ("batch2_h0_shared", draw(40, 24, (2,), (24,)), "bf16"),
+              ("mixed_dtypes", draw(50, 30, (), (30,)), "mixed")]
+    return cases
+
+
+def _rglru_on(arrays, dtype, device):
+    """a, b, h0 on ``device``: all in ``dtype`` ("f32", "bf16"), or float32
+    a with bf16 b and h0 ("mixed")."""
+    out = []
+    for i, a in enumerate(arrays):
+        if a is None:
+            out.append(None)
+            continue
+        t = torch.from_numpy(a).to(device)
+        bf16 = dtype == "bf16" or (dtype == "mixed" and i > 0)
+        out.append(t.to(torch.bfloat16) if bf16 else t)
+    return out
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_matches_plain(cuda_device):
+    cases = _rglru_cases()
+    for name, arrays, dtype in cases:
+        a, b, h0 = _rglru_on(arrays, dtype, cuda_device)
+        before = rglru_kernel.launches
+        y, h = rglru_kernel.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        assert rglru_kernel.launches == before + 1
+        assert y.dtype == h.dtype == a.dtype
+        ry, rh = rglru_scan_ref(a.float(), b.float(),
+                                None if h0 is None else h0.float())
+        tol = 1e-5 if dtype == "f32" else 5e-2
+        torch.testing.assert_close(y.float(), ry, rtol=tol, atol=tol,
+                                   msg=name)
+        torch.testing.assert_close(h.float(), rh, rtol=tol, atol=tol,
+                                   msg=name)
+        # a float32 state rounds only at the output: within one ulp of the
+        # output's dtype of the float32 loop rounded to it
+        eps = torch.finfo(a.dtype).eps
+        torch.testing.assert_close(y, ry.to(y.dtype), rtol=eps, atol=1e-6,
+                                   msg=name)
+        torch.testing.assert_close(h, rh.to(h.dtype), rtol=eps, atol=1e-6,
+                                   msg=name)
+    # h0 threads through: two halves equal one scan
+    a, b, _ = _rglru_on(cases[4][1], "f32", cuda_device)
+    y_full, h_full = rglru_scan_ref(a, b)
+    y_a, h_a = rglru_kernel.rglru_scan(a[:37], b[:37])
+    y_b, h_b = rglru_kernel.rglru_scan(a[37:], b[37:], h_a)
+    torch.testing.assert_close(torch.cat([y_a, y_b]), y_full, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(h_b, h_full, rtol=1e-5, atol=1e-5)
+    # the public op: auto launches (strided halves made contiguous),
+    # torch does not
+    before = rglru_kernel.launches
+    ab = torch.rand(2, 7, 48, device=cuda_device)
+    args = (ab[..., :24] * 0.5 + 0.4, ab[..., 24:])
+    u = rglru_scan(*args)
+    v = rglru_scan(*args, mode="torch")
+    assert rglru_kernel.launches == before + 1
+    for p, q in zip(u, v):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_three_layer_recurrentgemma_serve_kernel_matches_plain_scan(
+        cuda_device, monkeypatch):
+    """Full-width recurrentgemma-9b cut to one period (two RG-LRU layers
+    and a local one), float32 on the card, prompts up to 2,100 tokens
+    (past the window of 2,048): the tokens with the RG-LRU kernel equal
+    the plain scan's, every prefill launched the kernel once per RG-LRU
+    layer and decode none."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3,
+                              dtype="float32")
+    n_rglru = cfg.layer_kinds().count("rglru")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, size=n).tolist()
+               for n in (1, 2, 57, 300, 2_100)]
+    out, first = {}, {}
+    real = engine_mod.sample
+    for scan in ("auto", "torch"):
+        logits = []
+        monkeypatch.setattr(engine_mod, "sample", lambda lg, *a, **k: (
+            logits.append(lg.float().cpu()), real(lg, *a, **k))[1])
+        eng = ServeEngine(cfg, params, lanes=2, max_ctx=2_200,
+                          device=cuda_device, scan=scan)
+        before = rglru_kernel.launches
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run()
+        assert rglru_kernel.launches - before == (
+            n_rglru * eng.prefill_count if scan == "auto" else 0)
         out[scan] = [r.tokens_out for r in reqs]
         first[scan] = [lg for lg in logits if lg.shape[0] == 1]
         assert all(len(t) == 8 for t in out[scan])

@@ -190,9 +190,9 @@ def test_fault_schedules_match():
 
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch``, its subpackages (the lockVM, core, configs, the
-    ticket-dispatch and selective-scan kernels, models, serve, the serve
-    launcher and the benchmarks) and everything ``chip_smoke`` imports load
-    without JAX or any ``repro`` module."""
+    ticket-dispatch, selective-scan and RG-LRU kernels, models, serve,
+    the serve launcher and the benchmarks) and everything ``chip_smoke``
+    imports load without JAX or any ``repro`` module."""
     code = textwrap.dedent("""
         import importlib.util, sys
         sys.path.insert(0, "src")
@@ -203,12 +203,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.kernels.ticket_dispatch.kernel
         import repro_torch.kernels.mamba_scan.kernel
         import repro_torch.kernels.mamba_scan.ops
+        import repro_torch.kernels.rglru.kernel
+        import repro_torch.kernels.rglru.ops
         import repro_torch.models.model, repro_torch.serve
         import repro_torch.launch.serve
         import repro_torch.bench.serve_profile
         import repro_torch.bench.kernel_bounds
         repro_torch._build.ticket_constants_header()
         repro_torch._build.mamba_constants_header()
+        repro_torch._build.rglru_constants_header()
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -63,8 +63,17 @@ def _record_sampling(monkeypatch, module, box, calls):
     monkeypatch.setattr(module, "sample", recording)
 
 
+# prompt lengths drawn in [lo, hi): recurrentgemma's reach past its reduced
+# window of 32 (the banded prefill, the ring reorder, decode in a wrapped
+# ring); gemma3's stay within it once padded to 16 (the engine pads
+# attention models, and a padded prompt longer than the window would ring
+# its pads, in the reference as in the port)
+PROMPT_LENGTHS = {"recurrentgemma-9b": (3, 50)}
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-7b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "gemma3-1b"])
 def test_greedy_tokens_match_the_reference_engine(arch, monkeypatch):
     cfg = get_config(arch).reduced()
     ref_params = ref_init_params(ref_config(arch).reduced(),
@@ -72,8 +81,11 @@ def test_greedy_tokens_match_the_reference_engine(arch, monkeypatch):
     params = params_from_numpy(cfg, jax.tree.map(np.asarray, ref_params),
                                device=CPU)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(3, 21)))
+    lo, hi = PROMPT_LENGTHS.get(arch, (3, 21))
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(lo, hi)))
                .tolist() for _ in range(5)]
+    if arch in PROMPT_LENGTHS:
+        assert max(map(len, prompts)) > cfg.window
     runs = {}
     for name, module, make in (
             ("ref", ref_engine_mod,
@@ -171,6 +183,65 @@ def test_mamba_lane_reuse_matches_fresh_engine(mamba_setup, probe):
     used.run()
     assert r_used.admitted_at_step > 0
     assert r_fresh.tokens_out == r_used.tokens_out
+
+
+@pytest.fixture(scope="module")
+def griffin_setup():
+    cfg = get_config("recurrentgemma-9b").reduced()
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+
+
+@pytest.mark.parametrize("probe", [[3], [3, 1], list(range(2, 42))])
+def test_griffin_lane_reuse_matches_fresh_engine(griffin_setup, probe):
+    """A recurrentgemma lane that served a request longer than the window,
+    and decoded on while idle, gives a new request the state of a fresh
+    lane: admission writes the whole RG-LRU row and the ring's prompt
+    slots, and decode masks the ring's stale slots."""
+    cfg, params = griffin_setup
+    fresh = ServeEngine(cfg, params, lanes=2, max_ctx=64, device=CPU)
+    r_fresh = fresh.submit(probe, max_new_tokens=5)
+    fresh.run()
+    used = ServeEngine(cfg, params, lanes=2, max_ctx=64, device=CPU)
+    used.submit(list(range(1, 46)), max_new_tokens=2)
+    used.submit([7, 8, 9], max_new_tokens=9)
+    r_used = used.submit(probe, max_new_tokens=5)
+    used.run()
+    assert r_used.admitted_at_step > 0
+    assert r_fresh.tokens_out == r_used.tokens_out
+
+
+def test_insert_prefill_writes_rings_and_rglru_states(griffin_setup):
+    """A local layer's prefill cache is a sequence leaf: a short prompt
+    fills slots [0, S) of the ring, a prompt longer than the window fills
+    the ring, already in ring order; the RG-LRU ``h`` and ``conv`` leaves
+    are written whole."""
+    from repro_torch.models.model import forward, init_cache
+
+    cfg, params = griffin_setup
+    W = cfg.window
+    batch = init_cache(cfg, 2, 64, device=CPU)
+    for leaves in (batch["stack"]["slot0"], batch["stack"]["slot2"],
+                   batch["tail"][0]):
+        for leaf in leaves.values():
+            leaf.fill_(7.0)
+    for S in (10, W + 13):
+        tokens = torch.arange(1, S + 1)[None]
+        _, _, new = forward(params, {"tokens": tokens}, cfg,
+                            collect_cache=True)
+        insert_prefill(batch, new, 1)
+        ring = batch["stack"]["slot2"]["k"]             # the local layer
+        assert ring.shape[2] == W
+        n = min(S, W)
+        assert torch.equal(ring[:, 1, :n], new["stack"]["slot2"]["k"][:, 0])
+        if S < W:
+            assert float(ring[:, 1, n:].min()) == 7.0
+        assert batch["stack"]["slot0"].keys() == {"h", "conv"}
+        for k in ("h", "conv"):
+            assert torch.equal(batch["stack"]["slot0"][k][:, 1],
+                               new["stack"]["slot0"][k][:, 0])
+            assert torch.equal(batch["tail"][0][k][1], new["tail"][0][k][0])
+        assert float(ring[:, 0].min()) == 7.0           # other lane intact
 
 
 def test_insert_prefill_writes_whole_state_rows():
@@ -333,6 +404,15 @@ def test_engine_device_rules(small_setup, monkeypatch):
 
 def test_launch_serve_on_the_cpu(capsys):
     out = launch_serve.main(["--arch", "granite-moe-1b-a400m", "--reduced",
+                             "--device", "cpu", "--requests", "3",
+                             "--max-new", "4"])
+    assert [len(r.tokens_out) for r in out["requests"]] == [4, 4, 4]
+    text = capsys.readouterr().out
+    assert "[serve] 3 requests, 12 tokens" in text and "on cpu" in text
+
+
+def test_launch_serve_recurrentgemma_on_the_cpu(capsys):
+    out = launch_serve.main(["--arch", "recurrentgemma-9b", "--reduced",
                              "--device", "cpu", "--requests", "3",
                              "--max-new", "4"])
     assert [len(r.tokens_out) for r in out["requests"]] == [4, 4, 4]
