@@ -15,10 +15,13 @@ entry points a user calls, and checks them:
 2. kernel vs plain: the lockVM kernel (``mode="cuda"``) against the plain
    PyTorch engine on the card, bit-identical on all eight output stats, on
    the 14 ``tests/corpus`` entries, a fault sweep (preemptions, spurious
-   wakes and aborts) and the fig3 cells at a reduced horizon.
+   wakes and aborts), cells of 130 threads (past the 128 whose rows the
+   kernel keeps in registers) and the fig3 cells at a reduced horizon.
 3. main path: ``repro_torch.sim.run_sweeps`` with ``mode="auto"`` over the
    full fig3 spec (13 locks at 1-64 threads, ``twa-timo`` at 1-32, seeds
-   1-3, horizon 1.5M cycles), which must resolve to the kernel.
+   1-3, horizon 1.5M cycles), which must resolve to the kernel; then the
+   kernel alone on the same inputs (CUDA events), its microseconds per
+   event on the longest cell's chain and the SM clock while it runs.
 4. the paper's fig3 claims on the kernel (ticket collapses, TWA stays flat
    and meets MCS, handover scaling).
 5. ticket kernel vs plain: the ticket-dispatch kernel against its plain
@@ -36,7 +39,9 @@ entry points a user calls, and checks them:
 7. scan kernel vs plain: the selective-scan kernel against the plain loop
    on float32 casts of its inputs, within 1e-5 (float32 inputs) and 5e-2
    (bf16), at falcon-mamba-7b's full-width prefill shape and small, ragged,
-   batched, h0-threaded and mixed-dtype cases.
+   batched, h0-threaded and mixed-dtype cases; its time at the full-width
+   prefill (back-to-back calls, and the kernel alone under
+   ``torch.profiler``) beside the plain loop's.
 8. serve_mamba: the same traffic on falcon-mamba-7b at full width (64
    layers, d 4,096, bf16, random weights from a seeded generator): every
    prefill goes through the scan kernel once per layer, decode through
@@ -108,6 +113,14 @@ FIG3_THREADS = (1, 2, 4, 8, 16, 32, 64)
 TIMO_THREADS = (1, 2, 4, 8, 16, 32)  # gen_twa_timo_acquire: T <= 32
 CHECK_HORIZON = 10_000
 CLAIMS_HORIZON = 800_000
+
+
+def query_smi(fields: str) -> str:
+    """``nvidia-smi --query-gpu=<fields>`` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def emit(obj: dict) -> None:
@@ -201,23 +214,28 @@ def launch_ms(fn, launches: int = 200, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(fn, kernel_name: str, launches: int = 50) -> float:
+def profiled_ms(fn, kernel_name: str, launches: int = 50,
+                spare: int = 10) -> float:
     """Median device time in ms of the kernels named ``kernel_name`` over
     ``launches`` calls of ``fn`` under ``torch.profiler``: the kernel alone,
-    where back-to-back calls of a short kernel time the host's wrapper."""
+    where back-to-back calls of a short kernel time the host's wrapper.
+    The session makes ``spare`` calls more, since a second profiler session
+    in one process has reported all but a few of its launches; at least
+    ``launches`` must be reported."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
+        for _ in range(launches + spare):
             fn()
         torch.cuda.synchronize()
     times = [e.device_time for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and kernel_name in e.name]
-    assert len(times) == launches, (kernel_name, len(times))
+    assert launches <= len(times) <= launches + spare, (kernel_name,
+                                                        len(times))
     return float(np.median(times)) / 1e3
 
 
@@ -723,6 +741,8 @@ def scan_phase(dev, kernel, ref) -> dict:
     # time and bound at the full-width prefill, bf16 as the serve runs it
     args = as_dtype(cases[0][1], "bf16")[:6]
     ms = launch_ms(lambda: kernel.selective_scan(*args))
+    device_ms = profiled_ms(lambda: kernel.selective_scan(*args),
+                            "mamba_scan_kernel")
     plain_ms = launch_ms(lambda: ref.selective_scan_ref(*args), launches=3,
                          repeats=3)
     L, D = args[0].shape
@@ -733,9 +753,10 @@ def scan_phase(dev, kernel, ref) -> dict:
     return {"phase": "scan_kernel_vs_plain",
             "tolerance": "rtol=atol=1e-5 (float32 inputs), 5e-2 (bf16)",
             "seconds": time.perf_counter() - t0, "sets": sets,
+            "lanes_per_channel": kernel.LANES,
             "timed": {"shape": [L, D, N], "dtype": "bf16", "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": bound_by}}
+                      "device_ms": device_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bound_by": bound_by}}
 
 
 def rglru_cases(dev) -> list:
@@ -919,10 +940,7 @@ def main() -> int:
         return engine.sweep_inputs(progs, **kw, device=dev), n_locks
 
     # ---- 1. card and build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = query_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     libraries = ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan"]
@@ -962,7 +980,11 @@ def main() -> int:
                                  threads=(4, 16, 40), **fault_kw),
                    sim.SweepSpec(locks="twa-timo", threads=(4, 16),
                                  **fault_kw)]
-    sets = [("faults", fault_specs),
+    # 130 threads: past the 128 the kernel keeps in registers (rows in
+    # shared memory)
+    wide_specs = [sim.SweepSpec(locks=("ticket", "twa"), threads=(130,),
+                                seeds=1, horizon=600, collect_latency=True)]
+    sets = [("faults", fault_specs), ("rows_in_memory_T130", wide_specs),
             ("fig3_reduced", fig3_specs(sim, CHECK_HORIZON))]
     for name, specs in sets:
         args, n_locks = spec_inputs(specs)
@@ -999,11 +1021,16 @@ def main() -> int:
         assert r["lat_p50"] <= r["lat_p99"] <= r["lat_p999"]
     events = np.asarray([int(r["events"]) for r in rows])
     by = {(r["lock"], r["n_threads"], r["seed"]): r for r in rows}
-    # the kernel alone on the main path's inputs (device time)
+    # the kernel alone on the main path's inputs (device time), and the SM
+    # clock sampled while it runs
     main_args, n_locks = spec_inputs(specs)
     main_ms, main_out = cuda_ms(lambda: engine_cuda.run_cells(
         *main_args, n_locks=n_locks), repeats=3)
     assert np.array_equal(main_out["events"].cpu().numpy(), events)
+    engine_cuda.run_cells(*main_args, n_locks=n_locks)
+    sm_clock = query_smi("clocks.sm,clocks.max.sm")
+    torch.cuda.synchronize()
+    us_per_event = main_ms * 1e3 / int(events.max())
     main_bound, main_bound_by = bound_ms(
         nbytes(main_args) + nbytes(main_out.values()), int(events.sum()))
     emit({"phase": "main_path", "entry": "repro_torch.sim.run_sweeps",
@@ -1014,6 +1041,8 @@ def main() -> int:
           "throughput_T64": {lk: float(np.median(
               [by[lk, 64, s]["throughput"] for s in (1, 2, 3)]))
               for lk in ("ticket", "twa", "mcs")},
+          "us_per_event_longest_cell": us_per_event,
+          "sm_clock_during_kernel": sm_clock,
           "bound_ms": main_bound, "bound_by": main_bound_by})
 
     # ---- 4. the paper's fig3 claims on the kernel
@@ -1114,7 +1143,9 @@ def main() -> int:
         "timed_on": f"fig3 cells at horizon {CHECK_HORIZON}",
         "max_events": reduced["max_events"],
         "main_path_ms": main_ms, "main_path_bound_ms": main_bound,
-        "main_path_max_events": int(events.max())}, {
+        "main_path_max_events": int(events.max()),
+        "main_path_us_per_event": us_per_event,
+        "sm_clock_during_kernel": sm_clock}, {
         "name": "ticket_dispatch_run", "route": "cuda",
         "source": "src/repro_torch/csrc/ticket_dispatch.cu",
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",
@@ -1134,7 +1165,8 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in scan["sets"]),
         "max_abs_err_float32": max(c["max_abs_err"] for c in scan["sets"]
                                    if c["tolerance"] == 1e-5),
-        "ms": scan["timed"]["ms"], "plain_ms": scan["timed"]["plain_ms"],
+        "ms": scan["timed"]["ms"], "device_ms": scan["timed"]["device_ms"],
+        "plain_ms": scan["timed"]["plain_ms"],
         "bound_ms": scan["timed"]["bound_ms"],
         "bound_by": scan["timed"]["bound_by"], "library_ms": None,
         "timed_on": "falcon-mamba-7b prefill: L 256, D 8192, N 16, bf16"}, {

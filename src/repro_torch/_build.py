@@ -14,7 +14,8 @@ register count, layout, cost indices, ``INF``, histogram size and fault
 kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), the
 ticket kernel's block size and shared-memory limit
 (:mod:`repro_torch.kernels.ticket_dispatch.kernel`), the selective
-scan's block size, chunk, state sizes and input dtype bits
+scan's block size, lanes per channel, chunk, state sizes and input dtype
+bits
 (:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's block
 size, load-ahead chunk and input dtype bits
 (:mod:`repro_torch.kernels.rglru.kernel`).  A library's name
@@ -79,6 +80,7 @@ def mamba_constants_header() -> str:
 
     return _header("repro_torch.kernels.mamba_scan.kernel",
                    [("MS_THREADS", kernel.THREADS),
+                    ("MS_LANES", kernel.LANES),
                     ("MS_CHUNK", kernel.CHUNK),
                     ("MS_MIN_N", min(kernel.STATE_SIZES)),
                     ("MS_MAX_N", max(kernel.STATE_SIZES))]

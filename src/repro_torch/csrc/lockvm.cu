@@ -15,16 +15,26 @@
 // its inputs and writes its stats once (tens of kilobytes); what remains is
 // a serial chain of events — each event's selection depends on the
 // previous event's effects — so a sweep takes as long as its longest cell's
-// chain of dependent steps.  The design keeps that chain short: the whole
-// hot state (memory, sharer bitsets, per-thread timelines, registers and
-// the program) sits in the block's shared memory, and one warp works each
-// event, with the lane-parallel pieces (the event argmin over 2T times, the
-// sharer-row popcount, the wake scan, the fault phase) spread over its 32
-// lanes and the scalar writes made by lane 0.  Every cell of a fig3-sized
-// sweep is resident at once (a 64-thread cell needs 42 KB), so there is no
-// scheduling across cells.  A cell too large for shared memory (a very
-// large waiting array) runs the same code with its state in a global
-// scratch buffer the caller allocates.
+// chain, events times the latency of one event.  A fig3 sweep puts only 2-3
+// warps on an SM, so nothing hides that latency: every dependent
+// instruction, shared load, warp reduction and taken branch of an event
+// costs its full latency.  The first design (one warp per cell, every
+// per-thread row in shared memory behind a generic pointer, lane 0 applying
+// a switch's twenty effect flags) spent about 1.0 us, some 2,000 cycles, per
+// event.  This design (lockvm_step.cuh) keeps each acting thread's rows and
+// its next instruction, already decoded, in the registers of the lane that
+// owns it; an event is one warp reduction on a packed (time, index) key,
+// the decode of the last actor's next instruction and one round of shared
+// loads while it is in flight, the opcode's handler on the winning lane
+// (which makes its own effects), two shuffles and a register wake on every
+// lane, and one __syncwarp.  The state all threads share (memory, sharer
+// bitsets, per-thread program registers, the lock table and the program)
+// stays in the block's shared memory, addressed as such (the shared or
+// scratch placement is a compile-time choice); a cell too large for it (a
+// very large waiting array) runs the same code with its state, rows
+// included, in a global scratch buffer the caller allocates.  Every cell of
+// a fig3-sized sweep is resident at once (a 64-thread cell needs 44.7 KB),
+// so there is no scheduling across cells.
 //
 // Built by repro_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -36,12 +46,39 @@
 
 #include "lockvm_step.cuh"
 
+// SCRATCH: the state is in global scratch, else in dynamic shared memory
+// (a compile-time choice, so that every state access of a shared-memory
+// cell compiles to a shared-memory instruction, not a generic one).  Each
+// cell takes the rows' variant its acting threads need: 1, 2 or 4 threads
+// a lane in registers, else (and always in scratch) rows in memory.
+template <bool SCRATCH>
 __global__ void __launch_bounds__(LVM_WARP) lockvm_kernel(LvmArgs g) {
     extern __shared__ __align__(16) int32_t lvm_smem[];
-    const int cell = blockIdx.x;
-    int32_t *S = g.scratch ? g.scratch + (int64_t)cell * g.state_words
-                           : lvm_smem;
-    lvm_run_cell(g, cell, threadIdx.x, S);
+    const int cell = blockIdx.x, lane = threadIdx.x;
+    int32_t *S = SCRATCH ? g.scratch + (int64_t)cell * g.state_words
+                         : lvm_smem;
+    const int Tn = lvm_acting_threads(g, cell);
+    static_assert(LVM_MAX_TPL == 4, "one instantiation per slot count");
+    if constexpr (SCRATCH) {
+        lvm_run_cell<0>(g, cell, lane, S, Tn);
+    } else {
+        if (Tn <= LVM_WARP) lvm_run_cell<1>(g, cell, lane, S, Tn);
+        else if (Tn <= 2 * LVM_WARP) lvm_run_cell<2>(g, cell, lane, S, Tn);
+        else if (Tn <= 4 * LVM_WARP) lvm_run_cell<4>(g, cell, lane, S, Tn);
+        else lvm_run_cell<0>(g, cell, lane, S, Tn);
+    }
+}
+
+template <bool SCRATCH>
+static int lockvm_launch(const LvmArgs &g, size_t smem, cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            lockvm_kernel<SCRATCH>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    lockvm_kernel<SCRATCH><<<g.n_cells, LVM_WARP, smem, stream>>>(g);
+    return (int)cudaGetLastError();
 }
 
 // Words of state one cell keeps (shared memory, or global scratch).
@@ -99,13 +136,9 @@ extern "C" int lockvm_run(
     g.state_words = lvm_layout(n_threads, mem_words, n_locks, prog_len).total;
     if (n_cells <= 0) return 0;
 
-    size_t smem = scratch ? 0 : (size_t)g.state_words * sizeof(int32_t);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            lockvm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    lockvm_kernel<<<n_cells, LVM_WARP, smem, (cudaStream_t)stream>>>(g);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    // a cell too large for shared memory keeps even its rows in scratch
+    if (scratch) return lockvm_launch<true>(g, 0, st);
+    return lockvm_launch<false>(
+        g, (size_t)g.state_words * sizeof(int32_t), st);
 }

@@ -5,10 +5,11 @@ Counterpart of the reference's Pallas kernel ``_scan_kernel``
 (``repro/kernels/mamba_scan/kernel.py``, wrapper ``selective_scan_pallas``),
 with its contract: the inputs are read in their dtypes (float32 or bf16),
 h and all arithmetic stay in float32, y and h_final come back in x's dtype.
-:func:`selective_scan` launches one thread per (sequence, channel, state
-element), :data:`THREADS` threads a block, each walking all L steps with
-its h in a register.  The kernel is built with ``nvcc`` at first use
-(:mod:`repro_torch._build`).
+:func:`selective_scan` launches :data:`LANES` threads per (sequence,
+channel), each holding N / LANES of the channel's states in registers for
+all L steps, :data:`THREADS` threads a block, with the inputs staged
+:data:`CHUNK` steps at a time.  The kernel is built with ``nvcc`` at first
+use (:mod:`repro_torch._build`).
 
 For tensors on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.mamba_scan.ref.selective_scan_ref`); for CUDA
@@ -24,10 +25,14 @@ import torch
 from ... import _build
 from . import ref
 
-# Threads of one block: THREADS // N channels of N state elements each.
+# Threads of one block: THREADS // LANES channels.
 THREADS = 128
-# Steps of x, dt, B and C staged in shared memory at a time.
-CHUNK = 64
+# Threads per channel, each holding N / LANES of its states: 4, the fastest
+# of 2, 4 and 8 at falcon-mamba-7b's prefill on the H100 (PERF.md).
+LANES = 4
+# Steps of x, dt, B and C staged in shared memory at a time (double
+# buffered: 24 KB of static shared memory).
+CHUNK = 32
 # State sizes the kernel takes (powers of two that divide a warp).
 STATE_SIZES = (4, 8, 16)
 MAX_BATCH = 65535   # the grid's second dimension

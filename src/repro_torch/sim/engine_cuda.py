@@ -3,8 +3,9 @@
 Counterpart of the reference's Pallas kernel (``repro/sim/engine_pallas.py``,
 ``make_run_pallas``).  :func:`run_cells` launches ``csrc/lockvm.cu``: one
 thread block of one warp per sweep cell, each running its cell's whole event
-loop with the hot state in shared memory (or, for a cell too large for it,
-in a global scratch buffer allocated here).  The kernel is built with
+loop with each simulated thread's rows in the registers of the lane that
+owns it and the shared state in shared memory (or, for a cell too large for
+it, in a global scratch buffer allocated here).  The kernel is built with
 ``nvcc`` at first use (:mod:`repro_torch._build`).
 
 For tensors on the CPU the wrapper runs the plain PyTorch engine, its plain
@@ -35,11 +36,13 @@ def cell_state_bytes(n_threads: int, mem_words: int, n_locks: int = 1,
                      prog_len: int = PROG_LEN) -> int:
     """Bytes of one cell's state in the kernel (``lvm_layout`` in
     ``csrc/lockvm_step.cuh``): memory, sharer bitsets and dirty owners per
-    line, eleven per-thread rows, the register file, the lock table, the
-    latency histogram and the program."""
+    line, eighteen per-thread rows (eleven of state, seven of the thread's
+    next instruction decoded), the register file, the lock table, the
+    latency histogram and the program.  The kernel keeps the per-thread rows
+    in registers up to 128 threads and reads this copy only above that."""
     n_lines = mem_words // isa.WORDS_PER_SECTOR
     words = (mem_words + n_lines * (bitset_words(n_threads) + 1)
-             + n_threads * (11 + isa.N_REGS) + n_locks + N_LAT_BUCKETS
+             + n_threads * (18 + isa.N_REGS) + n_locks + N_LAT_BUCKETS
              + prog_len * 5)
     return 4 * words
 

@@ -255,6 +255,7 @@ def test_scan_build_command_and_generated_header(tmp_path):
     defs = {k: int(v) for k, v in re.findall(
         r"#define (\w+) (-?\d+)", _build.mamba_constants_header())}
     assert defs == {"MS_THREADS": scan_kernel.THREADS,
+                    "MS_LANES": scan_kernel.LANES,
                     "MS_CHUNK": scan_kernel.CHUNK,
                     "MS_MIN_N": min(scan_kernel.STATE_SIZES),
                     "MS_MAX_N": max(scan_kernel.STATE_SIZES),
@@ -264,9 +265,11 @@ def test_scan_build_command_and_generated_header(tmp_path):
     # each input its own bit, and the kernel reads every one of them
     assert sorted(scan_kernel.BF16_BITS.values()) == [1 << i
                                                       for i in range(7)]
-    # every state size divides a warp and the block
+    # every state size divides a warp and the block, and the lanes of a
+    # channel divide every state size
     for n in scan_kernel.STATE_SIZES:
         assert 32 % n == 0 and scan_kernel.THREADS % n == 0
+        assert n % scan_kernel.LANES == 0
     src = "".join(p.read_text() for p in srcs)
     for name in defs:
         assert not re.search(rf"#define\s+{name}\b", src), name
@@ -384,6 +387,19 @@ def test_kernel_state_in_global_scratch_matches_plain(cuda_device):
     progs, kw, _ = sweep_engine_args([spec])
     assert engine_cuda.cell_state_bytes(
         40, kw["mem_words"]) > engine_cuda.SMEM_LIMIT
+    kw.pop("live_mem_words")
+    n_locks = kw.pop("n_locks")
+    _kernel_vs_plain(engine.sweep_inputs(progs, **kw, device=cuda_device),
+                     n_locks)
+
+
+@pytest.mark.cuda
+def test_kernel_rows_in_memory_past_128_threads_match_plain(cuda_device):
+    """130 threads: past the 128 whose rows the kernel keeps in the
+    registers of their lanes, so the rows live in shared memory."""
+    spec = SweepSpec(locks=("ticket", "twa"), threads=(130,), seeds=1,
+                     horizon=600, collect_latency=True)
+    progs, kw, _ = sweep_engine_args([spec])
     kw.pop("live_mem_words")
     n_locks = kw.pop("n_locks")
     _kernel_vs_plain(engine.sweep_inputs(progs, **kw, device=cuda_device),
