@@ -16,8 +16,9 @@ ticket kernel's block size and shared-memory limit
 (:mod:`repro_torch.kernels.ticket_dispatch.kernel`), the selective
 scan's block size, lanes per channel, chunk, state sizes and input dtype
 bits
-(:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's block
-size, load-ahead chunk and input dtype bits
+(:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's
+channels and threads a block, steps a stage, stages of the ring and
+input dtype bits
 (:mod:`repro_torch.kernels.rglru.kernel`).  A library's name
 carries a hash of its sources and header, so an edit rebuilds and an
 unchanged tree reuses the earlier build.  :func:`load_libraries` starts one
@@ -93,8 +94,10 @@ def rglru_constants_header() -> str:
     from .kernels.rglru import kernel
 
     return _header("repro_torch.kernels.rglru.kernel",
-                   [("RG_THREADS", kernel.THREADS),
-                    ("RG_CHUNK", kernel.CHUNK)]
+                   [("RG_CHANNELS", kernel.CHANNELS),
+                    ("RG_THREADS", kernel.THREADS),
+                    ("RG_STEPS", kernel.STEPS),
+                    ("RG_STAGES", kernel.STAGES)]
                    + [(f"RG_BF16_{name.upper()}", bit)
                       for name, bit in kernel.BF16_BITS.items()])
 

@@ -1,5 +1,5 @@
-"""Device time of the lockVM and selective-scan kernels of two source trees,
-on one card, in turns: a parent tree's and this one's.
+"""Device time of the lockVM, selective-scan and RG-LRU scan kernels of two
+source trees, on one card, in turns: a parent tree's and this one's.
 
     python src/repro_torch/bench/kernel_pair.py --parent PARENT [--out FILE]
 
@@ -17,14 +17,27 @@ times on the same inputs:
   and microseconds per event on the longest cell's chain;
 * the selective-scan kernel at falcon-mamba-7b's prefill, L 256 x D 8,192 x
   N 16 in bf16: device ms of one launch under ``torch.profiler``, the
-  median of 50.
+  median of at least 50, beside the launch floor of the same session (a
+  one-element ``torch.add``);
+* the RG-LRU scan kernel at recurrentgemma-9b's prefills, D 4,096 in bf16
+  at L 256 and 2,600: device ms of one launch under ``torch.profiler``, the
+  median of at least 50, beside the launch floor.
+
+``chip_smoke.py`` times its kernels with this file's ``profiled_ms`` and
+holds the RG-LRU kernel to its ``outside_one_ulp`` rule.
 
 Each child prints one JSON line with its numbers, the card's name, power
 limit and SM clock (``nvidia-smi``, sampled while the lockVM kernel runs),
 the ptxas report of the build and its outputs' fingerprints; the parent
-script checks that both trees' lockVM outputs are identical and that each
-scan is within 5e-2 of the plain loop on float32 casts, then prints a
-summary line (and writes all lines to FILE).  Needs one CUDA device.
+script checks that both trees' lockVM outputs are identical, that each
+scan is within 5e-2 of the plain loop on float32 casts, and that each
+RG-LRU output is within one ulp of bf16 of the float32 loop rounded to
+bf16 (and equal to it on float32 inputs), then prints a summary line (and
+writes all lines to FILE).  Needs one CUDA device.
+
+    python src/repro_torch/bench/kernel_pair.py --child $PWD
+
+times this tree alone (one child).
 """
 
 from __future__ import annotations
@@ -41,6 +54,8 @@ SMI_QUERY = "name,power.limit,clocks.sm,clocks.max.sm"
 FIG3_THREADS = (1, 2, 4, 8, 16, 32, 64)
 TIMO_THREADS = (1, 2, 4, 8, 16, 32)
 SCAN_SHAPE = (256, 8192, 16)
+RGLRU_D = 4096
+RGLRU_L = (256, 2600)
 
 
 def smi() -> str:
@@ -49,16 +64,64 @@ def smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def child(tree: Path) -> dict:
-    """Time both kernels of ``tree`` (imported from ``tree/src``)."""
-    sys.path.insert(0, str(tree / "src"))
+def profiled_ms(fn, kernel_name: str, launches: int = 50,
+                spare: int = 10) -> tuple[float, float]:
+    """Median device time in ms of the kernels named ``kernel_name`` over
+    ``launches`` calls of ``fn`` under ``torch.profiler``: the kernel alone,
+    where back-to-back calls of a short kernel time the host's wrapper.
+    The session makes ``spare`` calls more, since a second profiler session
+    in one process has reported all but a few of its launches; at least
+    ``launches`` must be reported.  Returned with it: the launch floor, the
+    median device time of a one-element ``torch.add`` called after each
+    ``fn`` in the same session (a yardstick: the port never calls it)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    one = torch.ones(1, device="cuda")
+    out = torch.empty_like(one)
+    fn()
+    torch.add(one, one, out=out)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches + spare):
+            fn()
+            torch.add(one, one, out=out)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    times = [e.device_time for e in kernels if kernel_name in e.name]
+    floor = [e.device_time for e in kernels if kernel_name not in e.name
+             and "add" in e.name.lower()]
+    for got in (times, floor):
+        assert launches <= len(got) <= launches + spare, (kernel_name,
+                                                          len(got))
+    return float(np.median(times)) / 1e3, float(np.median(floor)) / 1e3
+
+
+def outside_one_ulp(got, want) -> float:
+    """Share of ``got``'s elements more than one ulp of its dtype (rtol =
+    the dtype's eps, atol 1e-6) from the float32 ``want`` rounded to that
+    dtype."""
+    import torch
+
+    r = want.to(got.dtype).float()
+    limit = 1e-6 + torch.finfo(got.dtype).eps * r.abs()
+    return float(((got.float() - r).abs() > limit).float().mean())
+
+
+def child(tree: Path) -> dict:
+    """Time the three kernels of ``tree`` (imported from ``tree/src``)."""
+    sys.path.insert(0, str(tree / "src"))
+    import numpy as np
+    import torch
+
     from repro_torch import _build, sim
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ref as scan_ref
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru import ref as rglru_ref
     from repro_torch.sim import engine, engine_cuda
 
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve())
@@ -66,7 +129,7 @@ def child(tree: Path) -> dict:
         raise SystemExit("kernel_pair: no CUDA device")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _build.load_libraries(["lockvm", "mamba_scan"])
+    _build.load_libraries(["lockvm", "mamba_scan", "rglru_scan"])
 
     # ---- lockVM: the full fig3 sweep
     kw = dict(seeds=(1, 2, 3), cs_work=4, ncs_max=200, horizon=1_500_000,
@@ -114,15 +177,32 @@ def child(tree: Path) -> dict:
     torch.cuda.synchronize()
     err = max(float((y.float() - ry).abs().max()),
               float((h.float() - rh).abs().max()))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            fn()
+    scan_ms, scan_floor_ms = profiled_ms(fn, "mamba_scan_kernel")
+
+    # ---- RG-LRU scan at recurrentgemma-9b's prefills, bf16
+    rglru = {}
+    for L in RGLRU_L:
+        rng = np.random.default_rng(22)
+        a32, b32 = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+            rng.uniform(0.3, 0.999, size=(L, RGLRU_D)),
+            rng.normal(size=(L, RGLRU_D))))
+        a, b = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+        ry, rh = rglru_ref.rglru_scan_ref(a.float(), b.float())
+        y, h = rglru_kernel.rglru_scan(a, b)
+        y32, h32 = rglru_kernel.rglru_scan(a32, b32)
+        r32 = rglru_ref.rglru_scan_ref(a32, b32)
         torch.cuda.synchronize()
-    dts = [e.device_time for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and "mamba_scan_kernel" in e.name]
-    assert len(dts) == 50, len(dts)
+        device_ms, floor_ms = profiled_ms(
+            lambda: rglru_kernel.rglru_scan(a, b), "rglru_scan_kernel")
+        rglru[f"L{L}"] = {
+            "shape": [L, RGLRU_D], "dtype": "bf16", "device_ms": device_ms,
+            "launch_floor_ms": floor_ms,
+            "outside_one_ulp": max(outside_one_ulp(y, ry),
+                                   outside_one_ulp(h, rh)),
+            "max_abs_err": max(float((y.float() - ry).abs().max()),
+                               float((h.float() - rh).abs().max())),
+            "float32_equal": bool(torch.equal(y32, r32[0])
+                                  and torch.equal(h32, r32[1]))}
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln or "stack" in ln]
              for name, log in _build.build_logs.items()}
@@ -134,8 +214,9 @@ def child(tree: Path) -> dict:
                        "us_per_event": lvm_ms * 1e3 / int(events.max()),
                        "outputs_sha256": digest.hexdigest()},
             "scan": {"shape": list(SCAN_SHAPE), "dtype": "bf16",
-                     "device_ms": float(np.median(dts)) / 1e3,
-                     "max_abs_err": err}}
+                     "device_ms": scan_ms, "launch_floor_ms": scan_floor_ms,
+                     "max_abs_err": err},
+            "rglru": rglru}
 
 
 def main(argv=None) -> int:
@@ -171,6 +252,9 @@ def main(argv=None) -> int:
     assert len(digests) == 1, "lockVM outputs differ between the trees"
     for r in lines:
         assert r["scan"]["max_abs_err"] <= 5e-2, (r["label"], r["scan"])
+        for rg in r["rglru"].values():
+            assert rg["outside_one_ulp"] == 0.0 and rg["float32_equal"], (
+                r["label"], rg)
 
     def side(label, pick):
         return [pick(r) for r in lines if r["label"] == label]
@@ -184,6 +268,9 @@ def main(argv=None) -> int:
                 label, lambda r: r["lockvm"]["us_per_event"]),
             "scan_device_ms": side(label,
                                    lambda r: r["scan"]["device_ms"])}
+        for L in RGLRU_L:
+            summary[label][f"rglru_L{L}_device_ms"] = side(
+                label, lambda r: r["rglru"][f"L{L}"]["device_ms"])
     lines.append(summary)
     print(json.dumps(summary), flush=True)
     if a.out is not None:

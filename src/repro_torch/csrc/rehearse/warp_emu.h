@@ -7,6 +7,7 @@
 // runs them); nothing here is compiled for the card.
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -24,6 +25,9 @@
 
 struct alignas(8) float2 {
     float x, y;
+};
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
 };
 
 // One group of threads that synchronise together: a warp or a block.
@@ -109,6 +113,22 @@ inline int __any_sync(unsigned mask, int pred) {
         if (row[i]) return 1;
     return 0;
 }
+inline unsigned __match_any_sync(unsigned mask, int v) {
+    emu_full(mask);
+    const uint32_t *row = emu_exchange(emu_bits(v));
+    unsigned peers = 0;
+    for (int i = 0; i < 32; ++i)
+        if (row[i] == row[emu.lane]) peers |= 1u << i;
+    return peers;
+}
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+    emu_full(mask);
+    const uint32_t *row = emu_exchange(pred != 0);
+    unsigned votes = 0;
+    for (int i = 0; i < 32; ++i)
+        if (row[i]) votes |= 1u << i;
+    return votes;
+}
 inline void __syncwarp(unsigned mask = 0xffffffffu) {
     emu_full(mask);
     emu.warp->bar.arrive_and_wait();
@@ -128,9 +148,41 @@ inline int atomicAdd(int *p, int v) {
     return old;
 }
 
+// An mbarrier in its 64-bit word of shared memory: the pending arrivals in
+// bits 0-31, the arrivals a phase expects in bits 32-62, the phase's
+// parity in bit 63.  An arrival is a sequentially consistent read-modify-
+// write and a wait spins on sequentially consistent loads, so the stores
+// before an arrival are seen after the wait that it ends.
+inline void emu_bar_init(uint64_t *bar, unsigned n) {
+    std::atomic_ref<uint64_t>(*bar).store((uint64_t)n << 32 | n);
+}
+inline void emu_bar_arrive(uint64_t *bar) {
+    std::atomic_ref<uint64_t> word(*bar);
+    uint64_t old = word.load(), next;
+    do {
+        const uint64_t expect = old >> 32 & 0x7fffffffu;
+        uint64_t pending = (old & 0xffffffffu) - 1, parity = old >> 63;
+        if (pending == 0) {
+            pending = expect;
+            parity ^= 1;
+        }
+        next = parity << 63 | expect << 32 | pending;
+    } while (!word.compare_exchange_weak(old, next));
+}
+// Until the phase of parity `parity` has completed.
+inline void emu_bar_wait(uint64_t *bar, unsigned parity) {
+    std::atomic_ref<uint64_t> word(*bar);
+    while ((word.load() >> 63) == parity)
+        std::this_thread::yield();
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline float __uint_as_float(unsigned u) { return emu_value<float>(u); }
+// -std=c++20 (ISO) keeps g++ from contracting a * b + c into an fma, so
+// these round the product and the sum apart, as the card does
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline unsigned __float_as_uint(float f) { return emu_bits(f); }
 
 // Run fn(tid) on n_threads host threads: one block of warps of 32 (n_threads

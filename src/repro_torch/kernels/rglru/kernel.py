@@ -4,10 +4,12 @@ Counterpart of the reference's Pallas kernel ``_rglru_kernel``
 (``repro/kernels/rglru/kernel.py``, wrapper ``rglru_scan_pallas``), with
 its contract: a, b and h0 are read in their dtypes (float32 or bf16), h
 stays in float32, y and h_final come back in a's dtype.
-:func:`rglru_scan` launches one thread per (sequence, channel),
-:data:`THREADS` channels a block, each walking all L steps with its h in a
-register and a and b loaded :data:`CHUNK` steps at a time.  The
-kernel is built with ``nvcc`` at first use (:mod:`repro_torch._build`).
+:func:`rglru_scan` launches one block per (sequence, :data:`CHANNELS`
+channels): a chain warp, one lane a channel, walks all L steps with its h
+in a register, reading a and b from a ring of :data:`STAGES` stages of
+:data:`STEPS` steps in shared memory that a copy warp fills ahead of it
+(``cp.async``) and a store warp drains of y behind it.  The kernel is built with
+``nvcc`` at first use (:mod:`repro_torch._build`).
 
 For tensors on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.rglru.ref.rglru_scan_ref`); for CUDA tensors
@@ -23,11 +25,16 @@ import torch
 from ... import _build
 from . import ref
 
-# Channels of one block (one thread each).
-THREADS = 64
-# Steps of a and b each thread loads into registers at a time (one memory
-# wait a chunk).
-CHUNK = 64
+# Channels of one block (the chain warp's lanes), so that one sequence at
+# D 4,096 is 128 blocks on the card's 132 SMs.
+CHANNELS = 32
+# Threads of one block: the chain warp, the copy warp and the store warp.
+THREADS = 96
+# Steps of a and b a stage of the ring holds (the chain loads a stage into
+# registers at once), and the stages of the ring (why these:
+# csrc/rglru_scan.cu).
+STEPS = 64
+STAGES = 6
 MAX_BATCH = 65535   # the grid's second dimension
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -46,8 +53,23 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int] * 3 + [ctypes.c_int64, ctypes.c_uint,
                                  ctypes.c_void_p]
         lib.rglru_scan_run.restype = ctypes.c_int
+        lib.rglru_scan_smem_bytes.argtypes = [ctypes.c_uint]
+        lib.rglru_scan_smem_bytes.restype = ctypes.c_int
         lib._scan_typed = True
     return lib
+
+
+def smem_bytes(bf16_a: bool, bf16_b: bool) -> int:
+    """Dynamic shared memory of one block: three 8-byte barriers a stage
+    (padded to 32 bytes) and the ring's rows of a and b."""
+    return STAGES * (32 + STEPS * CHANNELS * ((2 if bf16_a else 4)
+                                              + (2 if bf16_b else 4)))
+
+
+def smem_bytes_from_kernel(mask: int) -> int:
+    """The compiled library's own count for a dtype mask (checks
+    :func:`smem_bytes`)."""
+    return int(_library().rglru_scan_smem_bytes(mask))
 
 
 def _check(name: str, t: torch.Tensor, shapes: tuple, device) -> None:

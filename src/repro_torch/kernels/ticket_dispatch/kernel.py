@@ -9,6 +9,11 @@ arrivals in order, a chunk of :data:`THREADS` at a time, with the
 per-expert counters carried in shared memory.  The kernel is built with
 ``nvcc`` at first use (:mod:`repro_torch._build`).
 
+Ids outside [0, E) follow the reference's rule (see
+:mod:`repro_torch.kernels.ticket_dispatch.ref`): an id in [-E, 0) wraps
+once to expert ``id + E`` and takes its count of earlier arrivals, any
+other takes ticket and slot INT32_MIN, and neither moves a counter.
+
 For tensors on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.ticket_dispatch.ref.dispatch_ref`); for CUDA
 tensors it launches the kernel or raises.
@@ -66,7 +71,7 @@ def ticket_dispatch(expert_ids: torch.Tensor, n_experts: int,
     independent group of arrivals in arrival order.
 
     ``slots`` is the ticket, or -1 where the ticket reaches ``capacity``
-    (``None``: no capacity).  On a CUDA device this is one kernel launch on
+    (``None``: no capacity); ids outside [0, E) as in :mod:`ref`.  On a CUDA device this is one kernel launch on
     the current stream; it does not synchronise.
     """
     global launches

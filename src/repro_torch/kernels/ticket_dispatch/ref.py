@@ -10,13 +10,20 @@ construction (ticket order == arrival order).  A port of the reference's
 independent groups written out (``grouped=True``) where the reference
 ``vmap``\\ s.
 
-Ids must lie in [0, E), as top-k gives them; an id outside it gets ticket
-and slot -1 and moves no counter (the CUDA kernel does the same).
+Top-k gives ids in [0, E).  Ids outside it follow the reference's rule,
+which is JAX's ``take_along_axis``: an id in [-E, 0) is wrapped once and
+takes the count of earlier arrivals to expert ``id + E`` as its ticket,
+any other id takes ticket INT32_MIN (the fill value), and neither moves a
+counter.  A slot is the ticket where it lies below the capacity, else -1,
+so a filled ticket keeps INT32_MIN as its slot.  The CUDA kernel applies
+the same rule.
 """
 
 from __future__ import annotations
 
 import torch
+
+INT32_MIN = -2**31
 
 
 def as_groups(expert_ids: torch.Tensor, grouped: bool) -> torch.Tensor:
@@ -35,15 +42,20 @@ def ticket_ref(expert_ids: torch.Tensor, n_experts: int, *,
     experts = torch.arange(n_experts, device=ids.device)
     onehot = (ids[..., None] == experts).to(torch.int32)          # (G, n, E)
     exclusive = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
-    valid = (ids >= 0) & (ids < n_experts)
-    safe = ids.clamp(0, max(n_experts - 1, 0))[..., None]
-    tickets = torch.where(valid, exclusive.gather(2, safe)[..., 0], -1)
+    # JAX's gather rule: a negative index wraps once, one still outside
+    # [0, E) takes the fill value
+    column = torch.where(ids < 0, ids + n_experts, ids)
+    inside = (column >= 0) & (column < n_experts)
+    safe = column.clamp(0, max(n_experts - 1, 0))[..., None]
+    tickets = torch.where(inside, exclusive.gather(2, safe)[..., 0],
+                          INT32_MIN)
     return tickets.reshape(expert_ids.shape)
 
 
 def dispatch_ref(expert_ids: torch.Tensor, n_experts: int, capacity: int, *,
                  grouped: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Tickets + capacity-bounded slots (slot = -1 → dropped).
+    """Tickets + capacity-bounded slots (slot = -1 → dropped; a filled
+    ticket, INT32_MIN, stays the slot, as in the reference).
 
     Like a bounded waiting room: arrivals whose ticket reaches capacity are
     turned away (MoE token dropping), FIFO-fairly — the earliest arrivals

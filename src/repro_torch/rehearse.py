@@ -1,9 +1,11 @@
 """Run the device code of the port's CUDA kernels on the host, with ``g++``.
 
-The lockVM kernel's event loop (``csrc/lockvm_step.cuh``) and the selective
-scan's block function (``csrc/mamba_scan_kernel.cuh``) use only a few
-CUDA built-ins (warp shuffles and reductions, ``__syncwarp``,
-``__syncthreads``, bit casts, ``expf``).  ``csrc/rehearse/warp_emu.h``
+The lockVM kernel's event loop (``csrc/lockvm_step.cuh``), the selective
+scan's and the RG-LRU scan's block functions (``csrc/mamba_scan_kernel.cuh``,
+``csrc/rglru_scan_kernel.cuh``) and the ticket kernel's group function
+(``csrc/ticket_dispatch_kernel.cuh``) use only a few CUDA built-ins (warp
+shuffles, votes, matches and reductions, ``__syncwarp``, ``__syncthreads``,
+bit casts, ``expf``, rounded arithmetic).  ``csrc/rehearse/warp_emu.h``
 defines them for the host: each GPU thread becomes a ``std::thread``, and
 every warp or block primitive a ``std::barrier`` phase.  A small program
 per kernel (``csrc/rehearse/<name>_host.cpp``) includes the header with the
@@ -38,6 +40,11 @@ PROGRAMS = {
                _build.constants_header),
     "mamba_scan": ("mamba_scan_host.cpp", "mamba_scan_kernel.cuh",
                    _build.mamba_constants_header),
+    "rglru_scan": ("rglru_scan_host.cpp", "rglru_scan_kernel.cuh",
+                   _build.rglru_constants_header),
+    "ticket_dispatch": ("ticket_dispatch_host.cpp",
+                        "ticket_dispatch_kernel.cuh",
+                        _build.ticket_constants_header),
 }
 
 
@@ -140,6 +147,53 @@ def _raw_words(t: torch.Tensor) -> np.ndarray:
     return np.frombuffer(raw, dtype=np.int32)
 
 
+def _from_words(words: np.ndarray, n: int, dtype: torch.dtype, shape
+                ) -> torch.Tensor:
+    """The first n elements of dtype (float32 or bf16) packed in words."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    raw = words.tobytes()[:n * esize]
+    as_int = torch.int16 if esize == 2 else torch.int32
+    return (torch.frombuffer(bytearray(raw), dtype=as_int).view(dtype)
+            .reshape(shape))
+
+
+def rglru_scan(a, b, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU kernel's device code on the host: the arguments of
+    :func:`repro_torch.kernels.rglru.kernel.rglru_scan` (CPU tensors,
+    float32 or bf16 each), its (y, h_final) in a's dtype."""
+    from .kernels.rglru import kernel
+
+    batched = a.dim() == 3
+    Bt = a.shape[0] if batched else 1
+    L, D = a.shape[-2:]
+    named = {"a": a, "b": b, "h0": h0}
+    mask = sum(bit for k, bit in kernel.BF16_BITS.items()
+               if named[k] is not None and named[k].dtype == torch.bfloat16)
+    head = [Bt, L, D, D if h0 is not None and h0.dim() == 2 else 0, mask,
+            int(h0 is not None)]
+    words = [np.array(head, np.int32)]
+    words += [_raw_words(t) for t in (a, b, h0) if t is not None]
+    out = _run("rglru_scan", words)
+    lead = (Bt,) if batched else ()
+    esize = 2 if a.dtype == torch.bfloat16 else 4
+    wy = (Bt * L * D * esize + 3) // 4
+    return (_from_words(out[:wy], Bt * L * D, a.dtype, (*lead, L, D)),
+            _from_words(out[wy:], Bt * D, a.dtype, (*lead, D)))
+
+
+def ticket_dispatch(expert_ids: torch.Tensor, n_experts: int,
+                    capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ticket kernel's device code on the host: (tickets, slots) of a
+    (G, n) int32 CPU tensor of expert ids, as
+    :func:`repro_torch.kernels.ticket_dispatch.kernel.ticket_dispatch`."""
+    G, n = expert_ids.shape
+    words = [np.array([G, n, n_experts, capacity], np.int32),
+             expert_ids.numpy().astype(np.int32)]
+    out = _run("ticket_dispatch", words)
+    tickets, slots = out.reshape(2, G, n)
+    return torch.from_numpy(tickets.copy()), torch.from_numpy(slots.copy())
+
+
 def mamba_scan(x, dt, A, B, C, D_skip, h0=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selective-scan kernel's block function on the host: the
@@ -168,12 +222,5 @@ def mamba_scan(x, dt, A, B, C, D_skip, h0=None
     ny, nh = Bt * L * D, Bt * D * N
     esize = 2 if x.dtype == torch.bfloat16 else 4
     wy = (ny * esize + 3) // 4
-    as_int = torch.int16 if esize == 2 else torch.int32
-
-    def tensor(words, n, shape):
-        raw = words.tobytes()[:n * esize]
-        return (torch.frombuffer(bytearray(raw), dtype=as_int)
-                .view(x.dtype).reshape(shape))
-
-    return (tensor(out[:wy], ny, (*lead, L, D)),
-            tensor(out[wy:], nh, (*lead, D, N)))
+    return (_from_words(out[:wy], ny, x.dtype, (*lead, L, D)),
+            _from_words(out[wy:], nh, x.dtype, (*lead, D, N)))

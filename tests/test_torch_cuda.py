@@ -295,12 +295,18 @@ def test_rglru_build_command_and_generated_header(tmp_path):
             assert (csrc / inc).is_file(), inc
     defs = {k: int(v) for k, v in re.findall(
         r"#define (\w+) (-?\d+)", _build.rglru_constants_header())}
-    assert defs == {"RG_THREADS": rglru_kernel.THREADS,
-                    "RG_CHUNK": rglru_kernel.CHUNK, "RG_BF16_A": 1,
+    assert defs == {"RG_CHANNELS": rglru_kernel.CHANNELS,
+                    "RG_THREADS": rglru_kernel.THREADS,
+                    "RG_STEPS": rglru_kernel.STEPS,
+                    "RG_STAGES": rglru_kernel.STAGES, "RG_BF16_A": 1,
                     "RG_BF16_B": 2, "RG_BF16_H0": 4}
     assert sorted(rglru_kernel.BF16_BITS.values()) == [1, 2, 4]
-    assert rglru_kernel.THREADS % 32 == 0 and 32 <= rglru_kernel.THREADS \
-        <= 128
+    # a chain warp of 32 channels, a copy and a store warp (the header's
+    # #error)
+    assert (rglru_kernel.CHANNELS, rglru_kernel.THREADS) == (32, 96)
+    # every dtype's ring fits a block's shared memory on sm_90 (227 KB)
+    assert max(rglru_kernel.smem_bytes(ba, bb) for ba in (False, True)
+               for bb in (False, True)) <= 232_448
     src = "".join(p.read_text() for p in srcs)
     for name in defs:
         assert not re.search(rf"#define\s+{name}\b", src), name
@@ -445,7 +451,9 @@ def _ticket_cases():
     cases += [(ids((3, 777), 0, e), e, 64)
               for e in (1, 5, 8, 100, 128, ticket_kernel.MAX_EXPERTS)]
     cases += [(torch.full((2, 5000), 7, dtype=torch.int32), 32, 160),
-              (ids((2, 999), -3, 35), 32, 20)]
+              (ids((2, 999), -3, 35), 32, 20),
+              # wrapped ids and the INT32_MIN fill, as the reference
+              (ids((2, 999), -64, 64), 32, 20)]
     return cases
 
 
@@ -688,6 +696,9 @@ def test_rglru_kernel_matches_plain(cuda_device):
                                    msg=name)
         torch.testing.assert_close(h.float(), rh, rtol=tol, atol=tol,
                                    msg=name)
+        if dtype == "f32":
+            # the product and the sum rounded apart, as the loop does
+            assert torch.equal(y, ry) and torch.equal(h, rh), name
         # a float32 state rounds only at the output: within one ulp of the
         # output's dtype of the float32 loop rounded to it
         eps = torch.finfo(a.dtype).eps

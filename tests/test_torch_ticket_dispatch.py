@@ -127,12 +127,50 @@ def test_skewed_groups_drop_all_but_capacity():
 
 
 def test_ids_outside_the_experts_take_no_ticket():
-    """The kernel's contract is ids in [0, E); outside it, both versions
-    give ticket and slot -1 and move no counter."""
-    ids = torch.tensor([[0, -1, 0, 4, 1, 0, 7, 1]], dtype=torch.int32)
-    t, s = kernel.ticket_dispatch(ids, 4, 2)
-    _same(t, [[0, -1, 1, -1, 0, 2, -1, 1]])
-    _same(s, [[0, -1, 1, -1, 0, -1, -1, 1]])
+    """Ids outside [0, E) take no ticket of their own: neither moves an
+    expert's counter.  What they read follows the reference's
+    ``dispatch_ref`` (JAX's gather rule): an id in [-E, 0) wraps once and
+    reads the count of earlier arrivals to id + E, any other reads
+    INT32_MIN as ticket and slot.  On the ids that showed the port's old
+    rule (ticket and slot -1) to differ."""
+    ids = np.asarray([3, 3, -1, -4, -5, 4, 3], np.int32)
+    r_t, r_s = ref_dispatch(jnp.asarray(ids), 4, 8)
+    fill = -2**31
+    np.testing.assert_array_equal(np.asarray(r_t),
+                                  [0, 1, 2, 0, fill, fill, 2])
+    np.testing.assert_array_equal(np.asarray(r_s), np.asarray(r_t))
+    for t, s in (dispatch_ref(torch.from_numpy(ids), 4, 8),
+                 kernel.ticket_dispatch(torch.from_numpy(ids[None]), 4, 8)):
+        _same(t.reshape(-1), r_t)
+        _same(s.reshape(-1), r_s)
+
+
+@pytest.mark.parametrize("n_experts", [1, 4, 32])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_ids_drawn_past_the_experts_match_the_reference(n_experts, grouped):
+    """Ids drawn in [-2E, 2E): in range, wrapped once, and filled with
+    INT32_MIN, against the reference's ``dispatch_ref`` element for
+    element (grouped: its ``jax.vmap`` over groups), INT32_MIN included."""
+    shape = (3, 40, 2) if grouped else (257, 3)
+    ids = np.random.default_rng(n_experts + 10 * grouped).integers(
+        -2 * n_experts, 2 * n_experts, size=shape).astype(np.int32)
+    capacity = max(1, int(np.prod(shape)) // (4 * n_experts))
+
+    def ref(x):
+        return ref_dispatch(x, n_experts, capacity)
+
+    r_t, r_s = (jax.vmap(ref) if grouped else ref)(jnp.asarray(ids))
+    assert int((np.asarray(r_t) == -2**31).sum()) > 0
+    p_t, p_s = dispatch_ref(torch.from_numpy(ids), n_experts, capacity,
+                            grouped=grouped)
+    _same(p_t, r_t)
+    _same(p_s, r_s)
+    t = ticket_ref(torch.from_numpy(ids), n_experts, grouped=grouped)
+    _same(t, r_t)
+    a_t, a_s = assign_slots(torch.from_numpy(ids), n_experts, capacity,
+                            grouped=grouped)
+    _same(a_t, r_t)
+    _same(a_s, r_s)
 
 
 def test_wrapper_checks_its_inputs():
