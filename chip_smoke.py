@@ -4,14 +4,15 @@
 
 Drives the port's four paths on the card — the lockVM sweep behind the
 paper's fig3, serving granite-moe-1b-a400m at full width through the
-ticket-FIFO ``ServeEngine``, and serving falcon-mamba-7b and
+ticket-FIFO ``ServeEngine`` (its MoE routing plan through the routing-plan
+kernel, and through the ticket kernel), and serving falcon-mamba-7b and
 recurrentgemma-9b at full width through the same engine — through the
 entry points a user calls, and checks them:
 
 1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
-   ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu`` and
-   ``csrc/rglru_scan.cu`` built with ``nvcc`` for ``sm_90a`` from the
-   checkout, all at once.
+   ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu``,
+   ``csrc/rglru_scan.cu`` and ``csrc/moe_plan.cu`` built with ``nvcc`` for
+   ``sm_90a`` from the checkout, all at once.
 2. kernel vs plain: the lockVM kernel (``mode="cuda"``) against the plain
    PyTorch engine on the card, bit-identical on all eight output stats, on
    the 14 ``tests/corpus`` entries, a fault sweep (preemptions, spurious
@@ -32,13 +33,22 @@ entry points a user calls, and checks them:
    INT32_MIN, as the reference's ``dispatch_ref``); the kernel alone under
    ``torch.profiler`` at the decode and a 256-token prefill group, beside
    the device time of a one-element ``torch.add`` (the launch floor).
+   Then the MoE routing-plan kernel against its plain version
+   (``plan_ref``) on the card, every output equal but the aux loss's gate
+   sums (rtol 1e-6: summed in another order), on seeded softmax gates at
+   granite-moe's prefill groups (Lp 16, 128, 256, 512) and decode group,
+   16 groups in one launch, gates tied to the bit, all mass on one expert
+   (drops) and grok-1's E 8 / K 2; its time alone and back to back at the
+   decode and a 256-token prefill group, beside the launch floor.
 6. serve: ``repro_torch.serve.ServeEngine`` on granite-moe-1b-a400m at
    full width in bf16 (random weights from a seeded generator): 16 requests
    of 16-256 prompt tokens and 32 new tokens each, 8 lanes, greedy, the
-   default TWA gate.  Every MoE layer goes through the ticket kernel; a
-   second run with ``dispatch="torch"`` must give the same tokens, bit for
-   bit.  A reduced float32 model on the card agrees with the same model on
-   the CPU.
+   default TWA gate.  Every MoE layer's routing plan is one launch of the
+   routing-plan kernel (``dispatch="auto"``); a run with
+   ``dispatch="ticket"`` (the plain plan around the ticket kernel, one
+   launch a layer) and one with ``dispatch="torch"`` (the plain plan) must
+   give the same tokens, bit for bit.  A reduced float32 model on the card
+   agrees with the same model on the CPU.
 7. scan kernel vs plain: the selective-scan kernel against the plain loop
    on float32 casts of its inputs, within 1e-5 (float32 inputs) and 5e-2
    (bf16), at falcon-mamba-7b's full-width prefill shape and small, ragged,
@@ -102,6 +112,7 @@ SCALAR_OPS_PER_S = 67e12
 # recurrentgemma-9b at full width, on one traffic (recurrentgemma's with two
 # long requests added, GRIFFIN_LONG prompt tokens, and a longer context).
 SERVE_ARCH = "granite-moe-1b-a400m"
+GROK_ARCH = "grok-1-314b"        # the routing plan's E 8 / K 2 check only
 MAMBA_ARCH = "falcon-mamba-7b"
 GRIFFIN_ARCH = "recurrentgemma-9b"
 GRIFFIN_LONG = (2030, 2600)
@@ -296,6 +307,99 @@ def ticket_phase(dev, kernel, ref, moe_capacity, cfg) -> dict:
             "timed": timed}
 
 
+def plan_cases(dev, moe_capacity, cfg, grok) -> list:
+    """(name, gates_full (G, N, E) float32 on the card, K, capacity, gate
+    dtype) of the routing-plan check: seeded softmax gates at granite-moe's
+    prefill groups and decode group at 8 lanes, 16 groups in one launch,
+    gates tied to the bit, all mass on one expert (drops), and grok-1's
+    E 8 / K 2 at its decode and prefill groups."""
+    rng = np.random.default_rng(13)
+    E, K = cfg.n_experts, cfg.top_k
+
+    def soft(logits):
+        return torch.softmax(torch.from_numpy(np.asarray(
+            logits, np.float32)).to(dev), -1)
+
+    bf16 = torch.bfloat16
+    cases = [(f"prefill_Lp{lp}", soft(rng.normal(size=(1, lp, E))), K,
+              moe_capacity(cfg, lp), bf16) for lp in (16, 128, 256, 512)]
+    cases += [("decode_8_lanes", soft(rng.normal(size=(1, SERVE_LANES, E))),
+               K, moe_capacity(cfg, SERVE_LANES), bf16),
+              ("16_groups", soft(rng.normal(size=(16, 128, E))), K,
+               moe_capacity(cfg, 128), bf16),
+              ("16_groups_float32", soft(rng.normal(size=(16, 128, E))), K,
+               moe_capacity(cfg, 128), torch.float32),
+              ("ties", torch.from_numpy((rng.integers(0, 4, size=(
+                  2, 256, E)) / 64).astype(np.float32)).to(dev), K,
+               moe_capacity(cfg, 256), bf16),
+              ("one_expert_drops", soft(np.where(np.arange(E) == 5, 20.0,
+                                                 0.0) * np.ones((2, 256, E))),
+               K, moe_capacity(cfg, 256), bf16)]
+    cases += [(f"grok_E{grok.n_experts}_K{grok.top_k}_{name}",
+               soft(rng.normal(size=(g, n, grok.n_experts))), grok.top_k,
+               moe_capacity(grok, n), bf16)
+              for name, g, n in (("decode", 1, SERVE_LANES),
+                                 ("prefill", 4, 256))]
+    return cases
+
+
+def plan_phase(dev, plan, ref, moe_capacity, cfg, grok) -> dict:
+    """The routing-plan kernel against its plain version on the card (every
+    output equal, the gate sums within 1e-6 relative), and its time (back to
+    back, and alone beside the launch floor) and bound at the serve path's
+    decode and 256-token prefill groups."""
+    from repro_torch.bench.kernel_pair import profiled_ms
+
+    t0 = time.perf_counter()
+    sets = []
+    for name, gates_full, K, cap, dtype in plan_cases(dev, moe_capacity, cfg,
+                                                     grok):
+        got = plan.moe_plan(gates_full, K, cap, dtype)
+        torch.cuda.synchronize()
+        want = ref.plan_ref(gates_full, K, cap, dtype)
+        unequal = [k for k in want if k != "gate_sums"
+                   and not torch.equal(got[k], want[k])]
+        if unequal:
+            raise AssertionError(f"routing-plan kernel != plain on {name}: "
+                                 f"{unequal}")
+        rel = float(((got["gate_sums"] - want["gate_sums"]).abs()
+                     / want["gate_sums"].abs().clamp_min(1e-30)).max())
+        assert rel <= 1e-6, (name, rel)
+        sets.append({"set": name, "shape": list(gates_full.shape), "K": K,
+                     "capacity": cap, "gates": str(dtype).split(".")[-1],
+                     "dropped": int((~got["kept"]).sum()),
+                     "max_abs_err": 0, "gate_sums_max_rel_err": rel})
+    timed = {}
+    for name, lp in (("decode", None), ("prefill_Lp256", 256)):
+        n = SERVE_LANES if lp is None else lp
+        cap = moe_capacity(cfg, n)
+        gates_full = torch.softmax(torch.from_numpy(np.random.default_rng(
+            lp or 0).normal(size=(1, n, cfg.n_experts)).astype(
+                np.float32)).to(dev), -1)
+
+        def fn():
+            return plan.moe_plan(gates_full, cfg.top_k, cap, torch.bfloat16)
+
+        ms = launch_ms(fn)
+        device_ms, floor_ms = profiled_ms(fn, "moe_plan_kernel")
+        plain = launch_ms(lambda: ref.plan_ref(gates_full, cfg.top_k, cap,
+                                               torch.bfloat16),
+                          launches=20)
+        # gates_full read once, every output written once; the top-k's
+        # compares (E per gate) and one counter step a pair
+        bound, bound_by = bound_ms(nbytes([gates_full]) + nbytes(fn().values()),
+                                   gates_full.numel() * cfg.n_experts
+                                   + n * cfg.top_k)
+        timed[name] = {"tokens": n, "E": cfg.n_experts, "K": cfg.top_k,
+                       "capacity": cap, "ms": ms, "device_ms": device_ms,
+                       "launch_floor_ms": floor_ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": bound_by}
+    return {"phase": "moe_plan_kernel_vs_plain",
+            "tolerance": "exact; gate_sums rtol 1e-6",
+            "seconds": time.perf_counter() - t0, "sets": sets,
+            "timed": timed}
+
+
 def serve_prompts(cfg, long: tuple = ()) -> list:
     """The serve traffic's prompts: SERVE_REQUESTS seeded draws of
     SERVE_PROMPT lengths, then one prompt of each length in ``long`` from
@@ -373,18 +477,20 @@ def serve_times(run: dict) -> dict:
                 1e3 * (run["wall"] - prefill) / run["eng"].step_count}
 
 
-def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
+def serve_phase(dev, cfg, params, ServeEngine, plan, ticket) -> dict:
     """Serve SERVE_REQUESTS requests at full width, first through the
-    ticket kernel (``dispatch="auto"``), then with ``dispatch="torch"``;
-    the tokens must be equal."""
+    routing-plan kernel (``dispatch="auto"``), then through the ticket
+    kernel (``dispatch="ticket"``) and with ``dispatch="torch"``; the tokens
+    must be equal."""
     prompts = serve_prompts(cfg)
+    counters = {"auto": plan, "ticket": ticket, "torch": plan}
 
     def run(dispatch, max_new):
         return timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
-                           kernel, dispatch=dispatch)
+                           counters[dispatch], dispatch=dispatch)
 
     t0 = time.perf_counter()
-    for dispatch in ("auto", "torch"):  # warm-up: allocator, GEMM plans
+    for dispatch in counters:           # warm-up: allocator, GEMM plans
         run(dispatch, 2)
     torch.cuda.reset_peak_memory_stats()
     auto = run("auto", SERVE_NEW)
@@ -394,16 +500,21 @@ def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
     want = cfg.n_layers * (eng.prefill_count + eng.step_count)
     assert launches == want, (launches, want)
     stats = eng.stats()
+    unfused = run("ticket", SERVE_NEW)
+    assert unfused["launches"] == want, (unfused["launches"], want)
     plain = run("torch", SERVE_NEW)
     assert plain["launches"] == 0, plain["launches"]
     tokens = [r.tokens_out for r in auto["reqs"]]
-    p_tokens = [r.tokens_out for r in plain["reqs"]]
-    if p_tokens != tokens:
-        bad = [i for i, (a, b) in enumerate(zip(tokens, p_tokens)) if a != b]
-        raise AssertionError(f"tokens with the ticket kernel differ from "
-                             f"dispatch='torch' on requests {bad}")
-    assert plain["eng"].step_count == eng.step_count
-    times, p_times = serve_times(auto), serve_times(plain)
+    for name, other in (("ticket", unfused), ("torch", plain)):
+        o_tokens = [r.tokens_out for r in other["reqs"]]
+        if o_tokens != tokens:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, o_tokens))
+                   if a != b]
+            raise AssertionError(f"tokens with the routing-plan kernel "
+                                 f"differ from dispatch={name!r} on "
+                                 f"requests {bad}")
+        assert other["eng"].step_count == eng.step_count
+    times = serve_times(auto)
     return {"phase": "serve", "entry": "repro_torch.serve.ServeEngine",
             "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
             "d_model": cfg.d_model, "experts": cfg.n_experts,
@@ -413,10 +524,13 @@ def serve_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
             "prompt_lengths": [len(p) for p in prompts],
             "lanes": SERVE_LANES, "max_ctx": SERVE_CTX, "gate": stats["lock"],
             "prefills": eng.prefill_count, "decode_steps": eng.step_count,
-            "ticket_launches": launches, "tokens_bit_identical": True,
+            "plan_launches": launches,
+            "ticket_launches": unfused["launches"],
+            "tokens_bit_identical": True,
             **times, "prefill_ms": [1e3 * t for t in auto["prefill_s"]],
-            "plain_dispatch": {k: p_times[k] for k in (
-                "wall_s", "prefill_ms_per_request", "decode_ms_per_step")},
+            **{f"{name}_dispatch": {k: serve_times(run_)[k] for k in (
+                "wall_s", "prefill_ms_per_request", "decode_ms_per_step")}
+               for name, run_ in (("ticket", unfused), ("plain", plain))},
             "peak_memory_bytes": peak,
             "admission": {k: v for k, v in stats.items() if k != "lock"},
             "seconds": time.perf_counter() - t0}
@@ -907,6 +1021,7 @@ def main() -> int:
     from repro_torch.kernels.rglru import kernel as rglru_kernel
     from repro_torch.kernels.rglru import ref as rglru_ref
     from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
+    from repro_torch.kernels.ticket_dispatch import plan as plan_kernel
     from repro_torch.kernels.ticket_dispatch import ref as ticket_ref
     from repro_torch.models import model
     from repro_torch.models.layers import moe_capacity
@@ -933,7 +1048,8 @@ def main() -> int:
     smi = query_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    libraries = ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan"]
+    libraries = ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan",
+                 "moe_plan"]
     _build.load_libraries(libraries)
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in _build.build_logs.get(name, "")
@@ -941,6 +1057,10 @@ def main() -> int:
              for name in libraries}
     assert ticket_kernel.smem_bytes_from_kernel(32) == \
         ticket_kernel.smem_bytes(32)
+    for args in ((32, 8, 8), (32, 512, 8), (32, 5000, 8), (8, 256, 2),
+                 (32, 1, 32)):
+        assert plan_kernel.smem_bytes_from_kernel(*args) == \
+            plan_kernel.smem_bytes(*args), args
     for mask in range(8):
         assert rglru_kernel.smem_bytes_from_kernel(mask) == \
             rglru_kernel.smem_bytes(bool(mask & 1), bool(mask & 2)), mask
@@ -953,6 +1073,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_seconds": build_s, "ptxas": ptxas,
           "ticket_smem_bytes_E32": ticket_kernel.smem_bytes(32),
+          "plan_smem_bytes_E32_K8_Lp512": plan_kernel.smem_bytes(32, 512, 8),
           "cell_state_bytes_T64": 4 * words})
 
     # ---- 2. kernel vs plain engine on the card
@@ -1056,6 +1177,9 @@ def main() -> int:
     cfg = get_config(SERVE_ARCH)
     ticket = ticket_phase(dev, ticket_kernel, ticket_ref, moe_capacity, cfg)
     emit(ticket)
+    plan = plan_phase(dev, plan_kernel, ticket_ref, moe_capacity, cfg,
+                      get_config(GROK_ARCH))
+    emit(plan)
 
     # ---- 6. serve granite-moe-1b-a400m at full width
     t0 = time.perf_counter()
@@ -1069,12 +1193,12 @@ def main() -> int:
     assert logits.shape == (1, 64, cfg.padded_vocab)
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert bool((logits[..., cfg.vocab:] == -1e30).all())
-    served = serve_phase(dev, cfg, params, ServeEngine, ticket_kernel)
-    serve_launches = served["ticket_launches"]
+    served = serve_phase(dev, cfg, params, ServeEngine, plan_kernel,
+                         ticket_kernel)
     served["init_params_s"] = init_s
     small = cfg.reduced()
     served["small_model"] = small_model_phase(
-        dev, small, model, ticket_kernel, [small.n_layers] * 3)
+        dev, small, model, plan_kernel, [small.n_layers] * 3)
     emit(served)
     del params, logits
     gc.collect()
@@ -1125,6 +1249,8 @@ def main() -> int:
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
     dec = ticket["timed"]["decode"]
     pre = ticket["timed"]["prefill_Lp256"]
+    pdec = plan["timed"]["decode"]
+    ppre = plan["timed"]["prefill_Lp256"]
     print(json.dumps({"kernels": [{
         "name": "lockvm_run", "route": "cuda",
         "source": "src/repro_torch/csrc/lockvm.cu",
@@ -1142,7 +1268,8 @@ def main() -> int:
         "name": "ticket_dispatch_run", "route": "cuda",
         "source": "src/repro_torch/csrc/ticket_dispatch.cu",
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",
-        "launches": serve_launches,
+        "launches": served["ticket_launches"],
+        "launches_on": "serve, dispatch='ticket'",
         "max_abs_err": max(c["max_abs_err"] for c in ticket["sets"]),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
         "launch_floor_ms": dec["launch_floor_ms"], "plain_ms": dec["plain_ms"],
@@ -1154,6 +1281,24 @@ def main() -> int:
         "prefill_Lp256_device_ms": pre["device_ms"],
         "prefill_Lp256_plain_ms": pre["plain_ms"],
         "prefill_Lp256_bound_ms": pre["bound_ms"]}, {
+        "name": "moe_plan_run", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_plan.cu",
+        "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",
+        "launches": served["plan_launches"],
+        "launches_on": "serve, dispatch='auto'",
+        "max_abs_err": max(c["max_abs_err"] for c in plan["sets"]),
+        "gate_sums_max_rel_err": max(c["gate_sums_max_rel_err"]
+                                     for c in plan["sets"]),
+        "ms": pdec["ms"], "device_ms": pdec["device_ms"],
+        "launch_floor_ms": pdec["launch_floor_ms"],
+        "plain_ms": pdec["plain_ms"], "bound_ms": pdec["bound_ms"],
+        "bound_by": pdec["bound_by"], "library_ms": None,
+        "timed_on": f"decode group: {pdec['tokens']} tokens, "
+                    f"E={pdec['E']}, K={pdec['K']}",
+        "prefill_Lp256_ms": ppre["ms"],
+        "prefill_Lp256_device_ms": ppre["device_ms"],
+        "prefill_Lp256_plain_ms": ppre["plain_ms"],
+        "prefill_Lp256_bound_ms": ppre["bound_ms"]}, {
         "name": "mamba_scan_run", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:94",

@@ -13,7 +13,9 @@ side, so that no constant is typed a second time: the lockVM's opcodes,
 register count, layout, cost indices, ``INF``, histogram size and fault
 kinds (:func:`constants_header`, from :mod:`repro_torch.sim`), the
 ticket kernel's block size and shared-memory limit
-(:mod:`repro_torch.kernels.ticket_dispatch.kernel`), the selective
+(:mod:`repro_torch.kernels.ticket_dispatch.kernel`), the routing-plan
+kernel's block size and stage of arrivals
+(:mod:`repro_torch.kernels.ticket_dispatch.plan`), the selective
 scan's block size, lanes per channel, chunk, state sizes and input dtype
 bits
 (:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's
@@ -75,6 +77,16 @@ def ticket_constants_header() -> str:
                     ("TD_SMEM_LIMIT", kernel.SMEM_LIMIT)])
 
 
+def plan_constants_header() -> str:
+    """The C header of the MoE routing-plan kernel's launch constants."""
+    from .kernels.ticket_dispatch import kernel, plan
+
+    return _header("repro_torch.kernels.ticket_dispatch.plan",
+                   [("TD_THREADS", kernel.THREADS),
+                    ("MP_STAGE", plan.STAGE),
+                    ("MP_MAX_EXPERTS", plan.MAX_EXPERTS)])
+
+
 def mamba_constants_header() -> str:
     """The C header of the selective-scan kernel's launch constants."""
     from .kernels.mamba_scan import kernel
@@ -118,6 +130,8 @@ KERNELS = {
                    mamba_constants_header),
     "rglru_scan": (("rglru_scan.cu", "rglru_scan_kernel.cuh"),
                    rglru_constants_header),
+    "moe_plan": (("moe_plan.cu", "moe_plan_kernel.cuh",
+                  "ticket_dispatch_kernel.cuh"), plan_constants_header),
 }
 
 

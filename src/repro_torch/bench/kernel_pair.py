@@ -1,7 +1,9 @@
-"""Device time of the lockVM, selective-scan and RG-LRU scan kernels of two
-source trees, on one card, in turns: a parent tree's and this one's.
+"""Device time of the port's kernels, and of the MoE layer and the granite
+serve around them, for two source trees, on one card, in turns: a parent
+tree's and this one's.
 
     python src/repro_torch/bench/kernel_pair.py --parent PARENT [--out FILE]
+        [--parts lockvm,scan,rglru,ticket,moe,serve]
 
 PARENT is an unpacked checkout of the commit to compare with (for example
 ``git archive <commit> | tar -x -C local/parent``; ``local/`` is
@@ -21,7 +23,23 @@ times on the same inputs:
   one-element ``torch.add``);
 * the RG-LRU scan kernel at recurrentgemma-9b's prefills, D 4,096 in bf16
   at L 256 and 2,600: device ms of one launch under ``torch.profiler``, the
-  median of at least 50, beside the launch floor.
+  median of at least 50, beside the launch floor;
+* the ticket kernel at granite-moe-1b-a400m's decode group (64 arrivals)
+  and a 256-token prefill group (2,048 arrivals), E 32, and the routing-plan
+  kernel, where the tree has it, at the decode group (8 tokens) and a
+  256-token prefill group: device ms under ``torch.profiler`` beside the
+  launch floor;
+* one granite-moe-1b-a400m MoE layer (``layers.moe``, d 1,024, E 32, K 8,
+  d_ff 512, bf16, seeded weights) at the decode step (8 lanes) and a
+  256-token prefill, as each tree runs it by default: the wall ms per call
+  with a synchronise, and its launches per call, split into the routing
+  plan's and the rest (:func:`moe_launches`);
+* granite-moe-1b-a400m served at full width on ``chip_smoke.py``'s
+  traffic (16 requests of 16-256 prompt tokens, 32 new tokens each, 8
+  lanes, ``max_ctx`` 512, seeded weights): decode ms a step, prefill ms a
+  request and tokens/s.
+
+``--parts`` picks some of these (all by default).
 
 ``chip_smoke.py`` times its kernels with this file's ``profiled_ms`` and
 holds the RG-LRU kernel to its ``outside_one_ulp`` rule.
@@ -44,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -56,6 +75,17 @@ TIMO_THREADS = (1, 2, 4, 8, 16, 32)
 SCAN_SHAPE = (256, 8192, 16)
 RGLRU_D = 4096
 RGLRU_L = (256, 2600)
+# granite-moe-1b-a400m's MoE calls (B, S): the decode step at 8 lanes and a
+# 256-token prefill
+MOE_SHAPES = {"decode": (8, 1), "prefill_Lp256": (1, 256)}
+# the ticket kernel's timed groups: granite-moe's decode at 8 lanes and a
+# 256-token prefill, 8 arrivals a token
+TICKET_ARRIVALS = {"decode": 64, "prefill_Lp256": 2048}
+SERVE_ARCH = "granite-moe-1b-a400m"
+PARTS = ("lockvm", "scan", "rglru", "ticket", "moe", "serve")
+# the runtime calls that launch a kernel, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
+                "cuLaunchKernel")
 
 
 def smi() -> str:
@@ -71,7 +101,9 @@ def profiled_ms(fn, kernel_name: str, launches: int = 50,
     where back-to-back calls of a short kernel time the host's wrapper.
     The session makes ``spare`` calls more, since a second profiler session
     in one process has reported all but a few of its launches; at least
-    ``launches`` must be reported.  Returned with it: the launch floor, the
+    ``launches`` must be reported, and a session that reports fewer (one
+    has reported none) is run again, up to three times.  Returned with it:
+    the launch floor, the
     median device time of a one-element ``torch.add`` called after each
     ``fn`` in the same session (a yardstick: the port never calls it)."""
     import numpy as np
@@ -83,21 +115,105 @@ def profiled_ms(fn, kernel_name: str, launches: int = 50,
     fn()
     torch.add(one, one, out=out)
     torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches + spare):
+                fn()
+                torch.add(one, one, out=out)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        times = [e.device_time for e in kernels if kernel_name in e.name]
+        floor = [e.device_time for e in kernels
+                 if kernel_name not in e.name and "add" in e.name.lower()]
+        if all(launches <= len(got) <= launches + spare
+               for got in (times, floor)):
+            return (float(np.median(times)) / 1e3,
+                    float(np.median(floor)) / 1e3)
+        counts.append((len(times), len(floor)))
+    raise AssertionError(f"{kernel_name}: the profiler reported (kernel, "
+                         f"floor) launches {counts} of {launches + spare}")
+
+
+def moe_inputs(cfg, dev) -> tuple[dict, dict]:
+    """One MoE layer's weights at ``cfg``'s full width and its inputs at
+    :data:`MOE_SHAPES`, in the model's dtype, from a seeded numpy draw (the
+    same in every tree)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(17)
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    dtype = getattr(torch, cfg.dtype)
+
+    def draw(*shape, scale=0.02):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(dev, dtype)
+
+    p = {"router": draw(d, E), "wi": draw(E, d, ff), "wg": draw(E, d, ff),
+         "wo": draw(E, ff, d)}
+    return p, {name: draw(B, S, d, scale=1.0)
+               for name, (B, S) in MOE_SHAPES.items()}
+
+
+def moe_launches(fn) -> dict:
+    """The kernel launches of one call of ``fn`` (a ``layers.moe`` call)
+    under ``torch.profiler``, split into the routing plan's and the rest:
+    the plan's are those the host makes between the end of the router's
+    softmax and the start of the first ``aten::gather`` after it (the D-wide
+    gather of the tokens into the expert buffers).  Also the host µs
+    between the two (under the profiler, which adds its own cost to every
+    op) and the count of plan launches by the outermost op that made
+    them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches + spare):
-            fn()
-            torch.add(one, one, out=out)
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    times = [e.device_time for e in kernels if kernel_name in e.name]
-    floor = [e.device_time for e in kernels if kernel_name not in e.name
-             and "add" in e.name.lower()]
-    for got in (times, floor):
-        assert launches <= len(got) <= launches + spare, (kernel_name,
-                                                          len(got))
-    return float(np.median(times)) / 1e3, float(np.median(floor)) / 1e3
+    cpu = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.time_range.start)
+    launches = [e for e in cpu if e.name in LAUNCH_CALLS]
+    soft_end = max(e.time_range.end for e in cpu if "softmax" in e.name)
+    gather_start = min(e.time_range.start for e in cpu
+                       if e.name == "aten::gather"
+                       and e.time_range.start >= soft_end)
+    plan = [e for e in launches
+            if soft_end <= e.time_range.start < gather_start]
+    by_op: dict = {}
+    for e in plan:
+        op = e
+        while op.cpu_parent is not None:
+            op = op.cpu_parent
+        by_op[op.name] = by_op.get(op.name, 0) + 1
+    return {"launches": len(launches), "plan_launches": len(plan),
+            "other_launches": len(launches) - len(plan),
+            "plan_host_us_profiled": gather_start - soft_end,
+            "plan_launches_by_op": by_op}
+
+
+def wall_ms(fn, calls: int = 50) -> float:
+    """Median host ms of ``fn()`` followed by a synchronise."""
+    import time
+
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
 
 
 def outside_one_ulp(got, want) -> float:
@@ -111,27 +227,190 @@ def outside_one_ulp(got, want) -> float:
     return float(((got.float() - r).abs() > limit).float().mean())
 
 
-def child(tree: Path) -> dict:
-    """Time the three kernels of ``tree`` (imported from ``tree/src``)."""
-    sys.path.insert(0, str(tree / "src"))
+def ticket_times(dev) -> dict:
+    """The ticket kernel alone at granite-moe's decode and 256-token prefill
+    groups, beside the launch floor; its outputs equal ``dispatch_ref``."""
     import numpy as np
     import torch
 
-    from repro_torch import _build, sim
-    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
-    from repro_torch.kernels.mamba_scan import ref as scan_ref
-    from repro_torch.kernels.rglru import kernel as rglru_kernel
-    from repro_torch.kernels.rglru import ref as rglru_ref
-    from repro_torch.sim import engine, engine_cuda
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ticket_dispatch import kernel, ref
+    from repro_torch.models.layers import moe_capacity
+
+    cfg = get_config(SERVE_ARCH)
+    out = {}
+    E = cfg.n_experts
+    for name, n in TICKET_ARRIVALS.items():
+        ids = torch.from_numpy(np.random.default_rng(n).integers(
+            0, E, size=(1, n)).astype(np.int32)).to(dev)
+        cap = moe_capacity(cfg, n // cfg.top_k)
+        t, s = kernel.ticket_dispatch(ids, E, cap)
+        want = ref.dispatch_ref(ids, E, cap, grouped=True)
+        assert torch.equal(t, want[0]) and torch.equal(s, want[1]), name
+        device_ms, floor_ms = profiled_ms(
+            lambda: kernel.ticket_dispatch(ids, E, cap),
+            "ticket_dispatch_kernel")
+        out[name] = {"arrivals": n, "E": E, "capacity": cap,
+                     "device_ms": device_ms, "launch_floor_ms": floor_ms}
+    if importlib.util.find_spec("repro_torch.kernels.ticket_dispatch.plan"):
+        out.update(plan_times(dev, cfg, moe_capacity))
+    return out
+
+
+def plan_times(dev, cfg, moe_capacity) -> dict:
+    """The routing-plan kernel alone (where the tree has it) at granite-moe's
+    decode group and a 256-token prefill group, beside the launch floor;
+    its outputs equal ``plan_ref`` but the gate sums."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ticket_dispatch import plan, ref
+
+    out = {}
+    for name, (B, S) in MOE_SHAPES.items():
+        n = B * S
+        gates_full = torch.softmax(torch.from_numpy(np.random.default_rng(
+            n).normal(size=(1, n, cfg.n_experts)).astype(np.float32)).to(
+                dev), -1)
+        cap = moe_capacity(cfg, n)
+
+        def fn():
+            return plan.moe_plan(gates_full, cfg.top_k, cap, torch.bfloat16)
+
+        got = fn()
+        want = ref.plan_ref(gates_full, cfg.top_k, cap, torch.bfloat16)
+        assert all(torch.equal(got[k], want[k]) for k in want
+                   if k != "gate_sums"), name
+        device_ms, floor_ms = profiled_ms(fn, "moe_plan_kernel")
+        out[f"plan_{name}"] = {"tokens": n, "E": cfg.n_experts,
+                               "K": cfg.top_k, "capacity": cap,
+                               "device_ms": device_ms,
+                               "launch_floor_ms": floor_ms}
+    return out
+
+
+def moe_times(dev) -> dict:
+    """One granite-moe MoE layer as this tree runs it by default: wall ms
+    per call and launches per call at the decode step and a 256-token
+    prefill, and a fingerprint of its outputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config(SERVE_ARCH)
+    p, xs = moe_inputs(cfg, dev)
+    out = {}
+    for name, x in xs.items():
+        def call():
+            return layers.moe(p, x, cfg)
+        y, aux = call()
+        out[name] = {"shape": list(MOE_SHAPES[name]), "wall_ms": wall_ms(call),
+                     **moe_launches(call),
+                     "y_sha256": hashlib.sha256(y.float().cpu().numpy()
+                                                .tobytes()).hexdigest(),
+                     "aux": float(aux)}
+        del y
+    torch.cuda.synchronize()
+    return out
+
+
+def serve_times(dev) -> dict:
+    """granite-moe served at full width on chip_smoke.py's traffic, after a
+    warm-up run of 2 new tokens: decode ms a step, prefill ms a request,
+    tokens/s, and a fingerprint of the tokens."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(
+        16, 257))).tolist() for _ in range(16)]
+
+    def run(max_new):
+        eng = ServeEngine(cfg, params, lanes=8, max_ctx=512, device=dev)
+        prefill_s, admit = [], eng._admit
+
+        def timed_admit(lane, req):
+            t = time.perf_counter()
+            admit(lane, req)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+
+        eng._admit = timed_admit
+        reqs = [eng.submit(q, max_new_tokens=max_new) for q in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del eng._admit
+        return eng, reqs, wall, prefill_s
+
+    run(2)
+    eng, reqs, wall, prefill_s = run(32)
+    tokens = [r.tokens_out for r in reqs]
+    return {"requests": len(prompts), "new_tokens": 32, "lanes": 8,
+            "decode_steps": eng.step_count, "wall_s": wall,
+            "prefill_ms_per_request": 1e3 * sum(prefill_s) / len(prefill_s),
+            "decode_ms_per_step": 1e3 * (wall - sum(prefill_s))
+                                  / eng.step_count,
+            "tokens_per_s": sum(map(len, tokens)) / wall,
+            "tokens_sha256": hashlib.sha256(json.dumps(tokens).encode())
+                             .hexdigest()}
+
+
+def child(tree: Path, parts) -> dict:
+    """Time ``parts`` of ``tree`` (imported from ``tree/src``)."""
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    from repro_torch import _build
 
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve())
     if not torch.cuda.is_available():
         raise SystemExit("kernel_pair: no CUDA device")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    _build.load_libraries(["lockvm", "mamba_scan", "rglru_scan"])
+    _build.load_libraries(list(_build.KERNELS))
+    row = {"tree": str(tree), "card": smi()}
+    if "lockvm" in parts:
+        row.update(_lockvm(dev))
+    if "scan" in parts:
+        row["scan"] = _scan(dev)
+    if "rglru" in parts:
+        row["rglru"] = _rglru(dev)
+    if "ticket" in parts:
+        row["ticket"] = ticket_times(dev)
+    if "moe" in parts:
+        row["moe"] = moe_times(dev)
+    if "serve" in parts:
+        row["serve"] = serve_times(dev)
+    row["card_after"] = smi()
+    row["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln
+                           or "stack" in ln]
+                    for name, log in _build.build_logs.items()}
+    return row
 
-    # ---- lockVM: the full fig3 sweep
+
+def _lockvm(dev) -> dict:
+    """The lockVM kernel on the full fig3 sweep, and the card while it
+    runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import sim
+    from repro_torch.sim import engine, engine_cuda
+
     kw = dict(seeds=(1, 2, 3), cs_work=4, ncs_max=200, horizon=1_500_000,
               max_events=2_000_000, collect_latency=True)
     others = tuple(lk for lk in sim.SIM_LOCKS if lk != "twa-timo")
@@ -159,8 +438,22 @@ def child(tree: Path) -> dict:
     digest = hashlib.sha256()
     for key in engine.OUT_KEYS:
         digest.update(out[key].cpu().numpy().tobytes())
+    return {"card": card,
+            "lockvm": {"ms": lvm_ms, "ms_all": times, "cells": len(events),
+                       "max_events": int(events.max()),
+                       "sum_events": int(events.sum()),
+                       "us_per_event": lvm_ms * 1e3 / int(events.max()),
+                       "outputs_sha256": digest.hexdigest()}}
 
-    # ---- selective scan at the full-width prefill, bf16
+
+def _scan(dev) -> dict:
+    """The selective scan at falcon-mamba-7b's full-width prefill, bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+    from repro_torch.kernels.mamba_scan import ref as scan_ref
+
     L, D, N = SCAN_SHAPE
     rng = np.random.default_rng(21)
     f32 = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
@@ -178,8 +471,19 @@ def child(tree: Path) -> dict:
     err = max(float((y.float() - ry).abs().max()),
               float((h.float() - rh).abs().max()))
     scan_ms, scan_floor_ms = profiled_ms(fn, "mamba_scan_kernel")
+    return {"shape": list(SCAN_SHAPE), "dtype": "bf16",
+            "device_ms": scan_ms, "launch_floor_ms": scan_floor_ms,
+            "max_abs_err": err}
 
-    # ---- RG-LRU scan at recurrentgemma-9b's prefills, bf16
+
+def _rglru(dev) -> dict:
+    """The RG-LRU scan at recurrentgemma-9b's prefills, bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru import ref as rglru_ref
+
     rglru = {}
     for L in RGLRU_L:
         rng = np.random.default_rng(22)
@@ -203,30 +507,23 @@ def child(tree: Path) -> dict:
                                float((h.float() - rh).abs().max())),
             "float32_equal": bool(torch.equal(y32, r32[0])
                                   and torch.equal(h32, r32[1]))}
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln or "stack" in ln]
-             for name, log in _build.build_logs.items()}
-    return {"tree": str(tree), "card": card, "card_after": smi(),
-            "ptxas": ptxas,
-            "lockvm": {"ms": lvm_ms, "ms_all": times, "cells": len(events),
-                       "max_events": int(events.max()),
-                       "sum_events": int(events.sum()),
-                       "us_per_event": lvm_ms * 1e3 / int(events.max()),
-                       "outputs_sha256": digest.hexdigest()},
-            "scan": {"shape": list(SCAN_SHAPE), "dtype": "bf16",
-                     "device_ms": scan_ms, "launch_floor_ms": scan_floor_ms,
-                     "max_abs_err": err},
-            "rglru": rglru}
+    return rglru
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="the parent tree")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated, of {','.join(PARTS)}")
     ap.add_argument("--out", type=Path, help="write every line here too")
     a = ap.parse_args(argv)
+    parts = a.parts.split(",")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}; options: {PARTS}")
     if a.child is not None:
-        print(json.dumps(child(a.child)), flush=True)
+        print(json.dumps(child(a.child, parts)), flush=True)
         return 0
     if a.parent is None:
         ap.error("--parent is required")
@@ -239,8 +536,9 @@ def main(argv=None) -> int:
             Path(tree).resolve() / "build" / "kernel_pair"))
         env.pop("PYTHONPATH", None)
         proc = subprocess.run([sys.executable, __file__, "--child",
-                               str(Path(tree).resolve())], env=env,
-                              capture_output=True, text=True)
+                               str(Path(tree).resolve()), "--parts",
+                               a.parts], env=env, capture_output=True,
+                              text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stderr)
             raise SystemExit(f"kernel_pair: the {label} child failed")
@@ -248,29 +546,53 @@ def main(argv=None) -> int:
         row["label"] = label
         lines.append(row)
         print(json.dumps(row), flush=True)
-    digests = {r["lockvm"]["outputs_sha256"] for r in lines}
-    assert len(digests) == 1, "lockVM outputs differ between the trees"
+    if "lockvm" in parts:
+        digests = {r["lockvm"]["outputs_sha256"] for r in lines}
+        assert len(digests) == 1, "lockVM outputs differ between the trees"
     for r in lines:
-        assert r["scan"]["max_abs_err"] <= 5e-2, (r["label"], r["scan"])
-        for rg in r["rglru"].values():
+        if "scan" in parts:
+            assert r["scan"]["max_abs_err"] <= 5e-2, (r["label"], r["scan"])
+        for rg in r.get("rglru", {}).values():
             assert rg["outside_one_ulp"] == 0.0 and rg["float32_equal"], (
                 r["label"], rg)
+    for label in ("parent", "change"):
+        # a tree gives the same MoE outputs and tokens in both its children
+        prints = {json.dumps([r.get("moe", {}).get(n, {}).get("y_sha256")
+                              for n in MOE_SHAPES]
+                             + [r.get("serve", {}).get("tokens_sha256")])
+                  for r in lines if r["label"] == label}
+        assert len(prints) == 1, (label, prints)
 
     def side(label, pick):
         return [pick(r) for r in lines if r["label"] == label]
 
     summary = {"summary": "kernel_pair", "order": [r["label"] for r in lines],
-               "cards": [r["card"] for r in lines]}
+               "parts": parts, "cards": [r["card"] for r in lines]}
     for label in ("parent", "change"):
-        summary[label] = {
-            "lockvm_ms": side(label, lambda r: r["lockvm"]["ms"]),
-            "lockvm_us_per_event": side(
-                label, lambda r: r["lockvm"]["us_per_event"]),
-            "scan_device_ms": side(label,
-                                   lambda r: r["scan"]["device_ms"])}
-        for L in RGLRU_L:
-            summary[label][f"rglru_L{L}_device_ms"] = side(
+        row = summary[label] = {}
+        if "lockvm" in parts:
+            row["lockvm_ms"] = side(label, lambda r: r["lockvm"]["ms"])
+            row["lockvm_us_per_event"] = side(
+                label, lambda r: r["lockvm"]["us_per_event"])
+        if "scan" in parts:
+            row["scan_device_ms"] = side(label,
+                                         lambda r: r["scan"]["device_ms"])
+        for L in RGLRU_L if "rglru" in parts else ():
+            row[f"rglru_L{L}_device_ms"] = side(
                 label, lambda r: r["rglru"][f"L{L}"]["device_ms"])
+        for name in ("decode", "prefill_Lp256", "plan_decode",
+                     "plan_prefill_Lp256") if "ticket" in parts else ():
+            for k in ("device_ms", "launch_floor_ms"):
+                row[f"ticket_{name}_{k}"] = side(
+                    label, lambda r: r["ticket"].get(name, {}).get(k))
+        for name in MOE_SHAPES if "moe" in parts else ():
+            for k in ("wall_ms", "launches", "plan_launches"):
+                row[f"moe_{name}_{k}"] = side(label,
+                                              lambda r: r["moe"][name][k])
+        if "serve" in parts:
+            for k in ("decode_ms_per_step", "prefill_ms_per_request",
+                      "tokens_per_s"):
+                row[f"serve_{k}"] = side(label, lambda r: r["serve"][k])
     lines.append(summary)
     print(json.dumps(summary), flush=True)
     if a.out is not None:

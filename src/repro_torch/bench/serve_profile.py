@@ -13,6 +13,13 @@ as one JSON line:
   one small PyTorch op, each timed over many calls without synchronising
   (the enqueue cost), and the kernel's device time from ``torch.profiler``;
   only for a model with experts.
+* ``moe_plan``: one MoE layer of the model at full width (seeded bf16
+  weights, ``layers.moe`` with ``dispatch="auto"``) at the decode step (8
+  lanes) and a 256-token prefill: its kernel launches per call under
+  ``torch.profiler``, split into the routing plan's (from the router's
+  softmax to the D-wide gather) and the rest, the host µs of the plan
+  section under the profiler, the plan's launches by op, and the wall ms
+  per call with a synchronise; only for a model with experts.
 * ``serve``: the model at full width (random bf16 weights from a seed)
   serving 8 requests of 64-256 prompt tokens and 8 new tokens on 8 lanes,
   with ``torch.profiler`` over the run after a warm-up: wall time of
@@ -21,8 +28,8 @@ as one JSON line:
   port's own kernels' device times, and the ops that take the most host
   and device time.
 
-With ``--out`` the profiler tables go to files in DIR.  Needs one CUDA
-device.
+With ``--out`` the profiler tables go to files in DIR.  Every row names
+the card and its power limit.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -44,7 +51,10 @@ from ..device import resolve_device
 from ..kernels.ticket_dispatch import assign_slots
 from ..kernels.ticket_dispatch import kernel as ticket_kernel
 from ..models.model import init_params
+from ..models import layers
 from ..serve import ServeEngine
+from .kernel_pair import (LAUNCH_CALLS, MOE_SHAPES, moe_inputs, moe_launches,
+                          smi, wall_ms)
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -61,9 +71,6 @@ def host_us(fn, n: int = 2000) -> float:
 
 
 SPANS = ("serve.prefill", "serve.step")
-# the runtime calls that launch a kernel, as the profiler names them
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
-                "cuLaunchKernel")
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel",
                 "rglru_scan_kernel")
@@ -126,6 +133,20 @@ def ticket_call(dev, out_dir: Path | None) -> dict:
         (out_dir / "ticket_call_profile.txt").write_text(
             prof.key_averages().table(sort_by="self_cpu_time_total",
                                       row_limit=20))
+    return row
+
+
+def moe_plan(dev, arch: str) -> dict:
+    cfg = get_config(arch)
+    p, xs = moe_inputs(cfg, dev)
+    row = {"phase": "moe_plan", "arch": cfg.name, "dtype": cfg.dtype,
+           "d_model": cfg.d_model, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "d_ff": cfg.d_ff}
+    for name, x in xs.items():
+        def call():
+            return layers.moe(p, x, cfg, dispatch="auto")
+        row[name] = {"shape": list(MOE_SHAPES[name]), **moe_launches(call),
+                     "wall_ms_per_call": wall_ms(call)}
     return row
 
 
@@ -224,9 +245,11 @@ def main(argv=None) -> list:
     rows = []
     if get_config(args.arch).n_experts:
         rows.append(ticket_call(dev, args.out))
+        rows.append(moe_plan(dev, args.arch))
     rows.append(serve(dev, args.out, args.arch))
+    card = smi()
     for row in rows:
-        print(json.dumps(row), flush=True)
+        print(json.dumps({**row, "card": card}), flush=True)
     return rows
 
 

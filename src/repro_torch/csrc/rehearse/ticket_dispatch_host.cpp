@@ -32,7 +32,7 @@ int main(int argc, char **argv) {
     int32_t *tickets = (int32_t *)out.data();
     int32_t *slots = tickets + (size_t)groups * n;
     for (int g = 0; g < groups; ++g) {
-        std::vector<int32_t> smem((size_t)(TD_WARPS + 1) * n_experts, -7);
+        std::vector<int32_t> smem((size_t)td_smem_words(n_experts), -7);
         emu_block(TD_THREADS, [&](int tid) {
             td_group(ids + g * n, tickets + g * n, slots + g * n, n,
                      n_experts, capacity, tid, smem.data());

@@ -79,6 +79,15 @@ inline T __shfl_sync(unsigned mask, T v, int src) {
     emu_full(mask);
     return emu_value<T>(emu_exchange(emu_bits(v))[src & 31]);
 }
+// Within segments of `width` lanes: the value of the lane `delta` below, or
+// the lane's own where there is none.
+template <class T>
+inline T __shfl_up_sync(unsigned mask, T v, unsigned delta, int width = 32) {
+    emu_full(mask);
+    const uint32_t *row = emu_exchange(emu_bits(v));
+    const bool has = emu.lane % width >= (int)delta;
+    return emu_value<T>(row[has ? emu.lane - (int)delta : emu.lane]);
+}
 template <class T>
 inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
     emu_full(mask);
@@ -177,6 +186,7 @@ inline void emu_bar_wait(uint64_t *bar, unsigned parity) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline float __uint_as_float(unsigned u) { return emu_value<float>(u); }
 // -std=c++20 (ISO) keeps g++ from contracting a * b + c into an fma, so
@@ -184,6 +194,20 @@ inline float __uint_as_float(unsigned u) { return emu_value<float>(u); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline unsigned __float_as_uint(float f) { return emu_bits(f); }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+
+// bf16 as its 16 bits; float to bf16 rounds to nearest even, as the card's
+// cvt.rn.bf16.f32 and PyTorch's cast do (a NaN becomes the quiet 0x7fc0)
+struct __nv_bfloat16 {
+    uint16_t x;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+    const uint32_t u = emu_bits(f);
+    if ((u & 0x7fffffffu) > 0x7f800000u)
+        return {(uint16_t)0x7fc0};
+    return {(uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 
 // Run fn(tid) on n_threads host threads: one block of warps of 32 (n_threads
 // a multiple of 32).

@@ -9,19 +9,23 @@
 // the TPU the grid ran in order, so a one-hot (BLOCK_N, E) matrix per grid
 // step and per-expert counters in VMEM carried from step to step did the
 // prefix count.  Blocks on Hopper run in no order, so here one thread
-// block owns one group and walks its arrivals in order, a chunk of
-// TD_THREADS at a time, with the counters in shared memory (a loop inside
-// the block takes the place of the sequential grid).  Within a chunk the
-// rank comes from warp matching (__match_any_sync, a popcount of the lower
-// lanes) and per-warp, per-expert counts in shared memory; there is no
-// per-arrival atomicAdd, whose order is not arrival order and would break
-// the FIFO drop rule.  G groups are G blocks of one launch.
+// block owns one group (G groups are G blocks of one launch) and walks its
+// arrivals in order (ticket_dispatch_kernel.cuh).  A group of more
+// arrivals than threads, with at most 32 experts, takes one pass: each
+// warp counts a contiguous run held in registers with one ballot a bit of
+// the id, one barrier, and each warp ranks its run from a running count a
+// lane.  A shorter group, or more experts, takes chunks of TD_THREADS
+// arrivals ranked by warp matching (__match_any_sync) and a serial walk
+// over the warps, the design before, which was faster there (PERF.md §6).
+// There is no per-arrival atomicAdd, whose order is not arrival order and
+// would break the FIFO drop rule.  The MoE serve path runs the
+// same walks inside the routing-plan kernel (moe_plan.cu); this kernel
+// serves assign_slots and dispatch="ticket".
 //
 // What bounds it on this card: bytes, at 12 per arrival (the id read, the
 // ticket and the slot written) over 3.35 TB/s — nanoseconds at a serve
 // step's few thousand arrivals, so the launch (a few microseconds) and the
-// block's serial walk over its chunks are what it costs.  Fusing it with
-// the router's top-k, or splitting a long group over blocks, is later work.
+// block's chain of dependent steps are what it costs.
 //
 // Built by repro_torch/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -40,13 +44,13 @@ ticket_dispatch_kernel(const int32_t *__restrict__ ids,
                        int n_experts, int capacity) {
     extern __shared__ __align__(16) int32_t td_smem[];
     const int64_t base = (int64_t)blockIdx.x * n;
-    td_group(ids + base, tickets + base, slots + base, n, n_experts,
+    td_group(ids + base, tickets + base, slots + base, (int)n, n_experts,
              capacity, threadIdx.x, td_smem);
 }
 
 // Bytes of dynamic shared memory one block takes for n_experts experts.
 extern "C" int64_t ticket_dispatch_smem_bytes(int n_experts) {
-    return (int64_t)(TD_WARPS + 1) * n_experts * (int64_t)sizeof(int32_t);
+    return td_smem_words(n_experts) * (int64_t)sizeof(int32_t);
 }
 
 // Ticket `groups` rows of n int32 ids each (row-major, contiguous) into
@@ -57,7 +61,8 @@ extern "C" int ticket_dispatch_run(const void *ids, void *tickets,
                                    void *slots, int64_t n, int groups,
                                    int n_experts, int capacity,
                                    void *stream) {
-    if (n_experts < 1 || groups < 0 || n < 0 || capacity < 0)
+    if (n_experts < 1 || groups < 0 || n < 0 || n > INT32_MAX ||
+        capacity < 0)
         return (int)cudaErrorInvalidValue;
     if (groups == 0 || n == 0)
         return 0;

@@ -4,9 +4,11 @@
 Counterpart of the reference's Pallas kernel ``_ticket_kernel``
 (``repro/kernels/ticket_dispatch/kernel.py``, wrapper
 ``ticket_dispatch_pallas``).  :func:`ticket_dispatch` launches one thread
-block of :data:`THREADS` threads per group; each block walks its group's
-arrivals in order, a chunk of :data:`THREADS` at a time, with the
-per-expert counters carried in shared memory.  The kernel is built with
+block of :data:`THREADS` threads per group.  A group of more arrivals than
+threads, with at most 32 experts, is ticketed in one pass (each warp counts
+a run of arrivals held in registers, one barrier, each warp ranks its run);
+a shorter group, or more experts, in chunks of :data:`THREADS` arrivals with
+the per-expert counters carried in shared memory.  The kernel is built with
 ``nvcc`` at first use (:mod:`repro_torch._build`).
 
 Ids outside [0, E) follow the reference's rule (see
@@ -28,7 +30,7 @@ import torch
 from ... import _build
 from . import ref
 
-# Threads of one block: a chunk of arrivals ranked together (16 warps).
+# Threads of one block (16 warps).
 THREADS = 512
 # Shared memory one block may use on Hopper (sm_90): 227 KB.
 SMEM_LIMIT = 232_448
@@ -43,7 +45,12 @@ launches = 0
 
 def smem_bytes(n_experts: int) -> int:
     """Dynamic shared memory of one block for ``n_experts`` experts."""
-    return 4 * (THREADS // 32 + 1) * n_experts
+    warps = THREADS // 32
+    # td_smem_words: the one-pass walk's two buffers of rows up to 32
+    # experts, else the chunked walk's counters and rows
+    chunks = (warps + 1) * n_experts
+    return 4 * (max(chunks, 2 * warps * n_experts) if n_experts <= 32
+                else chunks)
 
 
 def _library() -> ctypes.CDLL:

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.rglru.ops import rglru_scan
-from ..kernels.ticket_dispatch.ops import dispatch_combine_plan
+from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
+from ..kernels.ticket_dispatch.ref import renormalize, top_k_stable
 
 NEG_INF = -1e30   # the reference's mask value
 
@@ -273,21 +274,19 @@ def mlp(p, x, cfg: ArchConfig):
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
 
 
-def top_k_stable(x, k: int):
-    """The k largest entries along the last axis, ties to the lower index
-    (``lax.top_k``'s order; ``torch.topk`` promises none)."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], idx[..., :k]
+def router_softmax(p, flat):
+    """The router's float32 softmax over experts for token groups flat
+    (G, N, D)."""
+    logits = torch.einsum("gnd,de->gne", flat, p["router"]).float()
+    return torch.softmax(logits, dim=-1)
 
 
 def moe_route(p, flat, cfg: ArchConfig):
     """Router of :func:`moe` over token groups flat (G, N, D): the float32
     softmax over experts and its top-k (gates renormalised, ids)."""
-    logits = torch.einsum("gnd,de->gne", flat, p["router"]).float()
-    gates_full = torch.softmax(logits, dim=-1)
+    gates_full = router_softmax(p, flat)
     top_gates, top_ids = top_k_stable(gates_full, cfg.top_k)   # (G, N, K)
-    top_gates = top_gates / top_gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    return gates_full, top_gates, top_ids
+    return gates_full, renormalize(top_gates), top_ids
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -308,10 +307,13 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
     per sequence) for prefill; for one-token decode (S == 1) a single group
     over all lanes, idle lanes included, as the reference does.  Arrivals
     are ticketed in token-major order, so the earliest pairs keep their
-    slots.  ``dispatch`` is the ticket-dispatch mode (``"auto"``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors;
-    ``"torch"``: the plain version).  The buffers are built by an int
-    slot→token scatter and a D-wide gather: kept slots are unique by
+    slots.  ``dispatch`` is the routing-plan mode
+    (:func:`~repro_torch.kernels.ticket_dispatch.ops.route_plan`:
+    ``"auto"`` the routing-plan kernel for CUDA tensors, the plain plan for
+    CPU tensors; ``"ticket"`` the plain plan around the ticket kernel;
+    ``"torch"`` the plain plan): everything from the router's softmax to
+    the integer maps of the gathers.  The buffers are built by a D-wide
+    gather through the plan's slot→token map: kept slots are unique by
     construction, the ticket being a per-expert FIFO position.
     """
     B, S, D = x.shape
@@ -319,33 +321,15 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
     G = groups if groups is not None else (B if S > 1 else 1)
     N = (B * S) // G
     flat = x.reshape(G, N, D)
-    gates_full, top_gates, top_ids = moe_route(p, flat, cfg)
-
-    # load-balancing aux loss (Switch/GShard style), over all tokens; the
-    # one-hot by comparison (F.one_hot checks its input's range on the host,
-    # a device synchronisation per layer)
-    experts = torch.arange(E, device=x.device)
-    density = (top_ids[..., :1] == experts).float().mean(dim=(0, 1))
-    router_prob = gates_full.mean(dim=(0, 1))
-    aux = cfg.router_aux_weight * E * (density * router_prob).sum()
-
     capacity = moe_capacity(cfg, N)
-    plan = dispatch_combine_plan(top_ids, top_gates.to(x.dtype), E, capacity,
-                                 grouped=True, mode=dispatch)
-    slot, kept, gates = plan["slot"], plan["kept"], plan["gates"]
+    plan = route_plan(router_softmax(p, flat), E, K, capacity, x.dtype,
+                      mode=dispatch)
+    # load-balancing aux loss (Switch/GShard style), over all tokens
+    aux = aux_loss(plan, cfg.router_aux_weight)
 
-    # (token, k) pair -> flat buffer slot; dropped pairs -> overflow row
-    flat_idx = torch.where(kept, top_ids * capacity + slot.long(),
-                           E * capacity)                       # (G, N, K)
-    pair_tok = (torch.arange(N * K, device=x.device) // K).expand(G, N * K)
-    slot_tok = torch.full((G, E * capacity + 1), -1, dtype=torch.long,
-                          device=x.device)
-    slot_tok.scatter_(1, flat_idx.reshape(G, N * K), pair_tok)
-    slot_tok = slot_tok[:, :-1]
-    valid = slot_tok >= 0
-    buffers = torch.gather(flat, 1, slot_tok.clamp_min(0)[..., None]
+    buffers = torch.gather(flat, 1, plan["slot_tok"][..., None]
                            .expand(G, E * capacity, D))
-    buffers = torch.where(valid[..., None], buffers,
+    buffers = torch.where(plan["valid"][..., None], buffers,
                           torch.zeros((), dtype=x.dtype, device=x.device))
     buffers = buffers.reshape(G, E, capacity, D)
 
@@ -355,10 +339,10 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
 
     # combine: gather each kept pair's expert output, weight by gate
     out_flat = out.reshape(G, E * capacity, D)
-    safe_idx = flat_idx.clamp_max(E * capacity - 1).reshape(G, N * K, 1)
-    gathered = torch.gather(out_flat, 1, safe_idx.expand(G, N * K, D))
-    gathered = gathered.reshape(G, N, K, D) * gates[..., None]
-    y = torch.where(kept[..., None], gathered,
+    gathered = torch.gather(out_flat, 1, plan["safe_idx"][..., None]
+                            .expand(G, N * K, D))
+    gathered = gathered.reshape(G, N, K, D) * plan["gates"][..., None]
+    y = torch.where(plan["kept"][..., None], gathered,
                     torch.zeros((), dtype=gathered.dtype,
                                 device=x.device)).sum(dim=2)
     return y.reshape(B, S, D), aux

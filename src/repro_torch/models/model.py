@@ -264,7 +264,7 @@ def _ring(t, window: int):
 def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
                 dispatch: str = "auto", scan: str = "auto"):
     """One layer; returns (x, aux_loss, cache_entry).  ``dispatch`` is the
-    MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the mode of
+    MoE routing-plan mode (:func:`layers.moe`), ``scan`` the mode of
     the recurrences' scans (the selective scan of :func:`layers.mamba_block`
     and the RG-LRU scan of :func:`layers.rglru_block`)."""
     _require_ported(kind, cfg)
@@ -314,7 +314,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
             scan: str = "auto", collect_cache: bool = False):
     """Full forward pass over ``batch["tokens"]`` (B, S); returns
     (logits (B, S, V) float32, aux_loss, cache or None).  ``dispatch`` is
-    the MoE ticket-dispatch mode (:func:`layers.moe`), ``scan`` the mode of
+    the MoE routing-plan mode (:func:`layers.moe`), ``scan`` the mode of
     the selective scan (:func:`layers.mamba_block`) and of the RG-LRU scan
     (:func:`layers.rglru_block`)."""
     _check_ported(cfg)

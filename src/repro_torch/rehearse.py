@@ -2,10 +2,11 @@
 
 The lockVM kernel's event loop (``csrc/lockvm_step.cuh``), the selective
 scan's and the RG-LRU scan's block functions (``csrc/mamba_scan_kernel.cuh``,
-``csrc/rglru_scan_kernel.cuh``) and the ticket kernel's group function
-(``csrc/ticket_dispatch_kernel.cuh``) use only a few CUDA built-ins (warp
+``csrc/rglru_scan_kernel.cuh``), the ticket kernel's group function
+(``csrc/ticket_dispatch_kernel.cuh``) and the MoE routing-plan kernel's
+(``csrc/moe_plan_kernel.cuh``) use only a few CUDA built-ins (warp
 shuffles, votes, matches and reductions, ``__syncwarp``, ``__syncthreads``,
-bit casts, ``expf``, rounded arithmetic).  ``csrc/rehearse/warp_emu.h``
+bit casts, ``expf``, rounded arithmetic, the bf16 cast).  ``csrc/rehearse/warp_emu.h``
 defines them for the host: each GPU thread becomes a ``std::thread``, and
 every warp or block primitive a ``std::barrier`` phase.  A small program
 per kernel (``csrc/rehearse/<name>_host.cpp``) includes the header with the
@@ -34,17 +35,20 @@ from . import _build
 
 HOST_SRC = _build.CSRC / "rehearse"
 
-# program name -> (its source, the kernel header it includes, header maker)
+# program name -> (its source, the kernel headers it includes, header maker)
 PROGRAMS = {
-    "lockvm": ("lockvm_host.cpp", "lockvm_step.cuh",
+    "lockvm": ("lockvm_host.cpp", ("lockvm_step.cuh",),
                _build.constants_header),
-    "mamba_scan": ("mamba_scan_host.cpp", "mamba_scan_kernel.cuh",
+    "mamba_scan": ("mamba_scan_host.cpp", ("mamba_scan_kernel.cuh",),
                    _build.mamba_constants_header),
-    "rglru_scan": ("rglru_scan_host.cpp", "rglru_scan_kernel.cuh",
+    "rglru_scan": ("rglru_scan_host.cpp", ("rglru_scan_kernel.cuh",),
                    _build.rglru_constants_header),
     "ticket_dispatch": ("ticket_dispatch_host.cpp",
-                        "ticket_dispatch_kernel.cuh",
+                        ("ticket_dispatch_kernel.cuh",),
                         _build.ticket_constants_header),
+    "moe_plan": ("moe_plan_host.cpp",
+                 ("moe_plan_kernel.cuh", "ticket_dispatch_kernel.cuh"),
+                 _build.plan_constants_header),
 }
 
 
@@ -55,7 +59,7 @@ def gxx_path() -> str | None:
 
 def build(name: str) -> Path:
     """Build the rehearsal program ``name`` (once per source hash)."""
-    source, kernel_header, make_header = PROGRAMS[name]
+    source, kernel_headers, make_header = PROGRAMS[name]
     gxx = gxx_path()
     if gxx is None:
         raise RuntimeError("g++ not found: the rehearsal programs are built "
@@ -63,7 +67,7 @@ def build(name: str) -> Path:
     header_text = make_header()
     digest = hashlib.sha256(header_text.encode())
     for path in (HOST_SRC / source, HOST_SRC / "warp_emu.h",
-                 _build.CSRC / kernel_header):
+                 *(_build.CSRC / h for h in kernel_headers)):
         digest.update(path.read_bytes())
     tag = digest.hexdigest()[:16]
     out_dir = _build.build_dir() / "rehearse"
@@ -192,6 +196,37 @@ def ticket_dispatch(expert_ids: torch.Tensor, n_experts: int,
     out = _run("ticket_dispatch", words)
     tickets, slots = out.reshape(2, G, n)
     return torch.from_numpy(tickets.copy()), torch.from_numpy(slots.copy())
+
+
+def moe_plan(gates_full: torch.Tensor, top_k: int, capacity: int,
+             gate_dtype: torch.dtype) -> dict:
+    """The routing-plan kernel's device code on the host: the arguments of
+    :func:`repro_torch.kernels.ticket_dispatch.plan.moe_plan` (a CPU
+    tensor), its dict of outputs."""
+    G, N, E = gates_full.shape
+    bf16 = gate_dtype == torch.bfloat16
+    words = [np.array([G, N, E, top_k, capacity, int(bf16)], np.int32),
+             _raw_words(gates_full.float())]
+    out = _run("moe_plan", words).tobytes()
+    n_slots = E * capacity
+    layout = [("top_ids", torch.int32, (G, N, top_k)),
+              ("gates", gate_dtype, (G, N, top_k)),
+              ("slot", torch.int32, (G, N, top_k)),
+              ("kept", torch.bool, (G, N, top_k)),
+              ("safe_idx", torch.int64, (G, N * top_k)),
+              ("slot_tok", torch.int64, (G, n_slots)),
+              ("valid", torch.bool, (G, n_slots)),
+              ("first_counts", torch.float32, (G, E)),
+              ("gate_sums", torch.float32, (G, E))]
+    result, at = {}, 0
+    for key, dtype, shape in layout:
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        result[key] = (torch.frombuffer(bytearray(out[at:at + n]),
+                                        dtype=torch.uint8)
+                       .view(dtype).reshape(shape))
+        at += (n + 3) // 4 * 4
+    assert at == len(out), (at, len(out))
+    return result
 
 
 def mamba_scan(x, dt, A, B, C, D_skip, h0=None

@@ -12,8 +12,10 @@ step with per-lane positions that decodes every lane, finished ones
 included, as the reference does (their MoE routing takes expert capacity in
 the decode group; their Mamba and RG-LRU states advance until admission
 overwrites the lane's row).  Inside every MoE layer each routing decision
-draws a FIFO ticket from its expert through the CUDA ticket-dispatch
-kernel (``dispatch="auto"`` on a GPU) or its plain version
+draws a FIFO ticket from its expert: the layer's whole routing plan (top-k,
+tickets, slots, the slot→token map) is one launch of the CUDA routing-plan
+kernel (``dispatch="auto"`` on a GPU), the plain plan around the CUDA
+ticket kernel (``dispatch="ticket"``), or the plain plan
 (``dispatch="torch"``, or on the CPU).  ``scan`` selects both recurrences
 alike: every Mamba layer's prefill runs the selective scan, and every
 RG-LRU layer's prefill the RG-LRU scan, through its CUDA kernel
@@ -32,7 +34,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
-from ..kernels.ticket_dispatch.ops import MODES
+from ..kernels.ticket_dispatch.ops import PLAN_MODES
 from ..device import resolve_device
 from ..models.model import decode_step, forward, init_cache
 from .admission import LockGate, gate_kind_for_lock, make_gate
@@ -73,9 +75,9 @@ class ServeEngine:
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        if dispatch not in MODES:
+        if dispatch not in PLAN_MODES:
             raise ValueError(f"unknown dispatch mode {dispatch!r}; "
-                             f"options: {MODES}")
+                             f"options: {PLAN_MODES}")
         if scan not in SCAN_MODES:
             raise ValueError(f"unknown scan mode {scan!r}; options: "
                              f"{SCAN_MODES}")

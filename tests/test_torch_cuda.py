@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the lockVM, the MoE ticket dispatch, the Mamba
-selective scan and the RG-LRU scan): their build, their wrappers and their
-entry points.
+"""The port's CUDA kernels (the lockVM, the MoE ticket dispatch and routing
+plan, the Mamba selective scan and the RG-LRU scan): their build, their
+wrappers and their entry points.
 
 Runs here on the CPU for what does not need a card — the build commands and
 the generated constants headers, the parallel build, the device rules of
@@ -11,7 +11,10 @@ CPU tensors.  The kernel-vs-plain cases need a CUDA device: they are marked
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: bit-identical int32 outputs, and bit-identical tokens for the
-serve run whose MoE layers go through the ticket kernel.  The scan kernel
+serve runs whose MoE layers go through the routing-plan kernel or the
+ticket kernel.  The routing plan is bit-identical to its plain version but
+for the aux loss's gate sums, which the kernel sums in another order
+(rtol 1e-6).  The scan kernel
 keeps its state in float32: it is held to the plain loop on float32 casts
 of its inputs within rtol = atol = 1e-5 for float32 inputs and 5e-2 for
 bf16 (the reference's tolerances for its kernel); the two-layer Mamba
@@ -40,6 +43,8 @@ from repro_torch.kernels.rglru import kernel as rglru_kernel
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.ticket_dispatch import assign_slots, dispatch_ref
 from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
+from repro_torch.kernels.ticket_dispatch import plan as plan_kernel
+from repro_torch.kernels.ticket_dispatch import plan_ref, route_plan
 from repro_torch.models.layers import moe_capacity
 from repro_torch.models.model import init_params
 from repro_torch.serve import ServeEngine
@@ -329,16 +334,17 @@ def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "build_logs", {})
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Path(path))
     names = list(_build.KERNELS)
-    assert names == ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan"]
+    assert names == ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan",
+                     "moe_plan"]
     libs = _build.load_libraries(names)
-    assert log.read_text().split() == ["start"] * 4 + ["end"] * 4
+    assert log.read_text().split() == ["start"] * 5 + ["end"] * 5
     assert [p.name.split("-")[0] for p in libs] == [f"lib{n}" for n in names]
     assert all(p.exists() for p in libs)
     assert set(_build.build_logs) == set(names)
     # a second call builds nothing: the hashed libraries are reused
     monkeypatch.setattr(_build, "_libs", {})
     assert _build.load_libraries(["ticket_dispatch"]) == libs[1:2]
-    assert log.read_text().split().count("start") == 4
+    assert log.read_text().split().count("start") == 5
 
 
 def test_cell_state_bytes_fits_fig3_in_shared_memory():
@@ -480,11 +486,65 @@ def test_ticket_kernel_matches_plain(cuda_device):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def _plan_cases():
+    """(name, gates_full (G, N, E) float32 softmax, K, capacity, dtype):
+    granite-moe's prefill groups and decode group, 16 groups at once, a
+    group longer than the kernel's stage, gates tied to the bit, all mass
+    on one expert (drops), grok-1's E 8 / K 2, float32 gates."""
+    rng = np.random.default_rng(3)
+    granite = get_config("granite-moe-1b-a400m")
+
+    def soft(G, N, E, logits=None):
+        if logits is None:
+            logits = rng.normal(size=(G, N, E))
+        return torch.softmax(torch.from_numpy(logits.astype(np.float32)), -1)
+
+    bf16 = torch.bfloat16
+    cases = [(f"prefill_Lp{lp}", soft(1, lp, 32), 8,
+              moe_capacity(granite, lp), bf16) for lp in (16, 128, 512)]
+    cases += [("decode", soft(1, 8, 32), 8, 8, bf16),
+              ("16_groups", soft(16, 128, 32), 8, 40, bf16),
+              ("two_chunks", soft(1, 1100, 32), 8, 280, torch.float32),
+              ("ties", soft(2, 64, 32, np.round(rng.normal(size=(2, 64, 32))
+                                                 * 2) / 2), 8, 16, bf16),
+              ("one_expert_drops", soft(1, 64, 32, np.where(
+                  np.arange(32) == 5, 20.0, 0.0) + np.zeros((1, 64, 32))),
+               8, 16, bf16),
+              ("grok_E8_K2", soft(3, 40, 8), 2, 16, bf16)]
+    return cases
+
+
+@pytest.mark.cuda
+def test_plan_kernel_matches_plain(cuda_device):
+    """Every output of the routing-plan kernel equals the plain plan's bit
+    for bit, but the gate sums, which are summed in another order (within
+    1e-6 relative); the plan on the CPU equals the plain plan on the card."""
+    for name, gates_full, K, cap, dtype in _plan_cases():
+        d_gates = gates_full.to(cuda_device)
+        before = plan_kernel.launches
+        got = route_plan(d_gates, gates_full.shape[-1], K, cap, dtype)
+        torch.cuda.synchronize()
+        assert plan_kernel.launches == before + 1
+        want = plan_ref(d_gates, K, cap, dtype)
+        for key, value in want.items():
+            assert got[key].dtype == value.dtype, (name, key)
+            if key == "gate_sums":
+                torch.testing.assert_close(got[key], value, rtol=1e-6,
+                                           atol=0, msg=name)
+            else:
+                assert torch.equal(got[key], value), (name, key)
+        host = plan_ref(gates_full, K, cap, dtype)
+        for key in ("top_ids", "slot", "kept", "safe_idx", "slot_tok",
+                    "valid", "first_counts"):
+            assert torch.equal(want[key].cpu(), host[key]), (name, key)
+
+
 @pytest.mark.cuda
 def test_two_layer_granite_serve_kernel_matches_plain_dispatch(cuda_device):
     """Full-width granite-moe cut to two layers, bf16 on the card: the
-    tokens with the ticket kernel equal the tokens with the plain version,
-    bit for bit, and every MoE layer launched the kernel once per pass."""
+    tokens with the routing-plan kernel, and with the plain plan around the
+    ticket kernel, equal the tokens of the plain plan, bit for bit, and
+    every MoE layer launched its kernel once per pass."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=2)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -493,19 +553,20 @@ def test_two_layer_granite_serve_kernel_matches_plain_dispatch(cuda_device):
     prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(16, 120)))
                .tolist() for _ in range(6)]
     out = {}
-    for dispatch in ("auto", "torch"):
+    for dispatch in ("auto", "ticket", "torch"):
         eng = ServeEngine(cfg, params, lanes=4, max_ctx=160,
                           device=cuda_device, dispatch=dispatch)
-        before = ticket_kernel.launches
+        before = (plan_kernel.launches, ticket_kernel.launches)
         reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
         eng.run()
-        launched = ticket_kernel.launches - before
-        assert launched == (cfg.n_layers * (eng.prefill_count
-                                            + eng.step_count)
-                            if dispatch == "auto" else 0)
+        launched = (plan_kernel.launches - before[0],
+                    ticket_kernel.launches - before[1])
+        passes = cfg.n_layers * (eng.prefill_count + eng.step_count)
+        assert launched == {"auto": (passes, 0), "ticket": (0, passes),
+                            "torch": (0, 0)}[dispatch]
         out[dispatch] = [r.tokens_out for r in reqs]
         assert all(len(t) == 8 for t in out[dispatch])
-    assert out["auto"] == out["torch"]
+    assert out["auto"] == out["ticket"] == out["torch"]
 
 
 # ---------------------------------------------------------------------------
