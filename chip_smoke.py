@@ -2,12 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths on the card — the lockVM sweep behind the
-paper's fig3, serving granite-moe-1b-a400m at full width through the
-ticket-FIFO ``ServeEngine`` (its MoE routing plan through the routing-plan
-kernel, and through the ticket kernel), and serving falcon-mamba-7b and
-recurrentgemma-9b at full width through the same engine — through the
-entry points a user calls, and checks them:
+Drives the port's paths on the card — the lockVM sweep behind the
+paper's fig3 and the results store and lock advisor it feeds, the
+differential checker's lane on the lockVM kernel, serving
+granite-moe-1b-a400m at full width through the ticket-FIFO ``ServeEngine``
+(its MoE routing plan through the routing-plan kernel, and through the
+ticket kernel), and serving falcon-mamba-7b and recurrentgemma-9b at full
+width through the same engine — through the entry points a user calls,
+and checks them:
 
 1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
    ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu``,
@@ -23,6 +25,23 @@ entry points a user calls, and checks them:
    1-3, horizon 1.5M cycles), which must resolve to the kernel; then the
    kernel alone on the same inputs (CUDA events), its microseconds per
    event on the longest cell's chain and the SM clock while it runs.
+3a. results_advisor: the main path's 291 fig3 rows appended to a results
+   store in a temporary directory, loaded back (schema v2, ``mode``
+   ``"cuda"``); ``recommend_lock`` at 64 threads equal to the lock of
+   highest median throughput computed from the rows; ``ServeEngine(
+   lock="auto")`` on that store resolving that lock's gate; and a small
+   ``run_sweep`` under ``$REPRO_RESULTS_STORE`` appending each cell once.
+3b. fuzz_cuda: the differential checker's ``cuda`` lane
+   (``repro_torch.sim.check``): 1,024 cases generated from a seed drawn
+   anew and printed, a quarter with fault schedules and a tenth
+   trace-compiled, through the lockVM kernel against the batch oracle's C
+   path with the invariant catalog, no differential and no failure but the
+   reference's known ``twa-staged`` stall (counted), each case's state
+   pinned in shared memory or global scratch (one launch per placement);
+   the 14 ``tests/corpus`` entries replayed
+   through the kernel to their ``expect_classes``; and the self-test, the
+   same batch against an oracle whose stores are eagerly visible, which
+   must fail.
 4. the paper's fig3 claims on the kernel (ticket collapses, TWA stays flat
    and meets MCS, handover scaling).
 5. ticket kernel vs plain: the ticket-dispatch kernel against its plain
@@ -95,8 +114,11 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import secrets
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -128,6 +150,8 @@ SERVE_CTX = 512
 FIG3_THREADS = (1, 2, 4, 8, 16, 32, 64)
 TIMO_THREADS = (1, 2, 4, 8, 16, 32)  # gen_twa_timo_acquire: T <= 32
 CHECK_HORIZON = 10_000
+FIG3_ROWS = 13 * len(FIG3_THREADS) * 3 + len(TIMO_THREADS) * 3   # 291
+FUZZ_CASES = 1024
 CLAIMS_HORIZON = 800_000
 
 
@@ -979,6 +1003,146 @@ def rglru_phase(dev, kernel, ref) -> dict:
             "timed": timed}
 
 
+def results_advisor_phase(dev, sim, rows, ServeEngine, model,
+                          small_cfg) -> dict:
+    """The main path's fig3 rows through the results store and the lock
+    advisor, ``ServeEngine(lock="auto")`` on the store, and the store hook
+    of ``run_sweep`` (``$REPRO_RESULTS_STORE``) on a small sweep."""
+    from repro_torch.serve.admission import gate_kind_for_lock
+    from repro_torch.sim import engine_cuda, results
+    from repro_torch.sim.workloads import RESULTS_STORE_ENV
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "fig3.jsonl"
+        store = results.ResultsStore(path)
+        assert store.append_sweep(rows) == len(rows)
+        loaded = store.load()
+        assert len(loaded) == FIG3_ROWS, len(loaded)
+        assert all(r["mode"] == "cuda" and r["schema_version"] == 2
+                   for r in loaded)
+        rec = results.recommend_lock(store, {"n_threads": 64})
+        # the same answer computed from the in-memory rows: the lock (and
+        # waiting-array size) of highest median throughput at 64 threads
+        at64: dict = {}
+        for r in rows:
+            if r["n_threads"] == 64:
+                at64.setdefault((r["lock"], r["wa_size"]), []).append(
+                    r["throughput"])
+        medians = {k: float(np.median(v)) for k, v in at64.items()}
+        best = max(medians, key=medians.get)
+        assert (rec["lock"], rec["wa_size"]) == best, (rec, best)
+        assert rec["throughput"] == medians[best]
+        assert rec["confidence"] == "exact" and rec["n_threads"] == 64
+        params = model.init_params(small_cfg, torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        served = ServeEngine(small_cfg, params, lock="auto", store=str(path),
+                             workload={"n_threads": 64}, device=dev)
+        assert served.gate.kind == gate_kind_for_lock(rec["lock"])
+        assert served.lock_choice == {
+            "source": "advisor", "gate": served.gate.kind,
+            "sim_lock": rec["lock"], "confidence": "exact",
+            "throughput": rec["throughput"]}, served.lock_choice
+        hook = Path(tmp) / "hook.jsonl"
+        os.environ[RESULTS_STORE_ENV] = str(hook)
+        try:
+            engine_cuda.launches = 0
+            small = sim.run_sweep(sim.SweepSpec(
+                locks=("ticket", "twa"), threads=(4, 16), seeds=(1, 2),
+                horizon=20_000), device=dev)
+            hook_launches = engine_cuda.launches
+        finally:
+            del os.environ[RESULTS_STORE_ENV]
+        hooked = results.ResultsStore(hook).load()
+        assert hook_launches == 1, hook_launches
+        assert hooked == [results.row_from_result(r) for r in small]
+        assert len(hooked) == 8 and all(r["mode"] == "cuda" for r in hooked)
+    return {"phase": "results_advisor", "rows": len(loaded),
+            "recommend_T64": {k: rec[k] for k in (
+                "lock", "n_threads", "wa_size", "throughput", "confidence",
+                "n_rows")},
+            "medians_T64": {f"{lk}/{wa}": v
+                            for (lk, wa), v in sorted(medians.items())},
+            "serve_gate": served.gate.kind, "lock_choice": served.lock_choice,
+            "hook_rows": len(hooked), "hook_launches": hook_launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def fuzz_cuda_phase(root: Path, dev) -> dict:
+    """The differential checker's ``cuda`` lane: a fault-enabled batch at a
+    seed drawn anew through the lockVM kernel against the batch oracle's C
+    path (no differential, both state placements), the corpus replayed
+    through the kernel, and the checker's self-test (an injected
+    store-visibility bug in the oracle must fail the lane).
+
+    A failing case fails the phase unless it is the reference's known
+    ``twa-staged`` stall (``check.reference_stall``: ``recovery`` only, no
+    differential, the sequential oracle agreeing); those are counted.  The
+    printed seed replays the batch: ``python -m repro_torch.sim.check
+    --cases 1024 --seed S --fault-fraction 0.25 --trace-fraction 0.1
+    --batch-oracle --modes cuda``."""
+    from repro_torch.sim import check, engine_cuda
+    seed = secrets.randbelow(1 << 31)
+    print(f"fuzz_cuda seed {seed}", flush=True)
+    t0 = time.perf_counter()
+    batch = check.generate_batch(FUZZ_CASES, seed, fault_fraction=0.25,
+                                 trace_fraction=0.1)
+    gen_s = time.perf_counter() - t0
+    engine_cuda.launches = 0
+    t1 = time.perf_counter()
+    report = check.fuzz(batch, modes=("cuda",), sched_seed=seed,
+                        batch_oracle=True, device=dev)
+    fuzz_s = time.perf_counter() - t1
+    launches = engine_cuda.launches
+    stalls = [i for i, s, msgs in report.failures
+              if check.reference_stall(s, msgs)]
+    assert len(stalls) == len(report.failures), \
+        f"seed {seed}: " + report.summary()
+    assert report.oracle_impl == "c", report.oracle_impl
+    assert launches == 2, launches
+    assert set(report.placements) == {"cuda:smem", "cuda:global"}, \
+        report.placements
+    n_faults = sum(bool(s.meta.get("faults")) for s in batch)
+    n_traces = sum(s.meta.get("workload") == "trace" for s in batch)
+    assert n_faults > 0 and n_traces > 0
+
+    paths = sorted((root / "tests" / "corpus").glob("*.npz"))
+    assert len(paths) == 14, len(paths)
+    engine_cuda.launches = 0
+    problems = check.replay_corpus(paths, modes=("cuda",), device=dev)
+    replay_launches = engine_cuda.launches
+    corpus = {}
+    for path, probs in zip(paths, problems):
+        expect = sorted(check.load_scenario(path).meta.get(
+            "expect_classes", []))
+        got = sorted(check.failure_classes(probs))
+        assert got == expect, (path.stem, expect, got, probs[:4])
+        corpus[path.stem] = got
+    assert replay_launches > 0
+
+    engine_cuda.launches = 0
+    mutant = check.fuzz(batch, modes=("cuda",), sched_seed=seed,
+                        oracle_mutate=("eager_store",), batch_oracle=True,
+                        device=dev)
+    caught = sum(any(p.startswith("differential[cuda]") for p in msgs)
+                 for _, _, msgs in mutant.failures)
+    assert caught > 0, "the eager_store self-test was not caught"
+    return {"phase": "fuzz_cuda", "seed": seed, "cases": report.n_cases,
+            "fault_cases": n_faults, "trace_cases": n_traces,
+            "oracle_events": report.total_events,
+            "oracle_impl": report.oracle_impl,
+            "placements": report.placements,
+            "failing": len(report.failures), "reference_stalls": stalls,
+            "kernel_launches": launches, "generate_seconds": gen_s,
+            "fuzz_seconds": fuzz_s, "cases_per_s": report.n_cases / fuzz_s,
+            "corpus_entries": len(corpus), "corpus_classes": corpus,
+            "corpus_launches": replay_launches,
+            "self_test": {"mutation": "eager_store",
+                          "failing": len(mutant.failures),
+                          "differential_cuda": caught,
+                          "launches": engine_cuda.launches},
+            "seconds": time.perf_counter() - t0}
+
+
 def check_claims(by: dict) -> None:
     """The fig3 inequalities of tests/test_sim_paper_claims.py."""
     for T in (1, 2, 4):
@@ -1028,6 +1192,10 @@ def main() -> int:
     from repro_torch.serve import ServeEngine
     from repro_torch.sim import engine, engine_cuda
     from repro_torch.sim.corpus import load_scenario, scenario_sweep_args
+    from repro_torch.sim.workloads import RESULTS_STORE_ENV
+
+    # the sweeps here write to no results store but the phase's own
+    os.environ.pop(RESULTS_STORE_ENV, None)
 
     root = Path(__file__).resolve().parent
     dev = torch.device("cuda", 0)
@@ -1122,7 +1290,7 @@ def main() -> int:
     launches = engine_cuda.launches
     wall = time.perf_counter() - t0
     rows = [r for rs in results for r in rs]
-    assert len(rows) == 13 * len(FIG3_THREADS) * 3 + len(TIMO_THREADS) * 3
+    assert len(rows) == FIG3_ROWS, len(rows)
     assert all(r["mode"] == "cuda" for r in rows), rows[0]["mode"]
     assert launches > 0, launches
     for r in rows:
@@ -1158,6 +1326,13 @@ def main() -> int:
           "us_per_event_longest_cell": us_per_event,
           "sm_clock_during_kernel": sm_clock,
           "bound_ms": main_bound, "bound_by": main_bound_by})
+
+    # ---- 3a. the main path's rows through the results store and advisor
+    emit(results_advisor_phase(dev, sim, rows, ServeEngine, model,
+                               get_config(SERVE_ARCH).reduced()))
+
+    # ---- 3b. the differential checker's cuda lane
+    emit(fuzz_cuda_phase(root, dev))
 
     # ---- 4. the paper's fig3 claims on the kernel
     t0 = time.perf_counter()

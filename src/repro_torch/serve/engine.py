@@ -26,6 +26,7 @@ the CPU); decode launches neither.  A port of the reference's
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass, field
 
@@ -117,9 +118,9 @@ class ServeEngine:
 
         ``None`` keeps the historical behaviour (``two_tier`` picks twa vs
         single-tier ticket); a string names a registered gate or any
-        ``SIM_LOCKS`` algorithm; a :class:`LockGate` instance is used as-is.
-        ``"auto"`` (the results-store advisor) raises until ``sim/results/``
-        is ported.
+        ``SIM_LOCKS`` algorithm; ``"auto"`` asks the results-store advisor
+        (``store=`` or ``$REPRO_RESULTS_STORE``); a :class:`LockGate`
+        instance is used as-is.
         """
         if isinstance(lock, LockGate):
             return lock, {"source": "instance", "gate": lock.kind}
@@ -128,10 +129,22 @@ class ServeEngine:
             return (make_gate(kind, lanes, threshold=threshold),
                     {"source": "default", "gate": kind})
         if lock == "auto":
-            raise NotImplementedError(
-                "lock='auto' asks the results-store advisor, which is not "
-                "ported yet (ROADMAP: sim/results/ with the "
-                "REPRO_RESULTS_STORE hook); name a gate or a SIM_LOCKS lock")
+            from ..sim.results import ResultsStore, recommend_lock
+            from ..sim.workloads import RESULTS_STORE_ENV
+            path = store or os.environ.get(RESULTS_STORE_ENV)
+            if not path:
+                raise ValueError(
+                    "lock='auto' needs a results store: pass store= or set "
+                    f"{RESULTS_STORE_ENV}")
+            rec = recommend_lock(ResultsStore(path),
+                                 workload if workload is not None
+                                 else {"n_threads": lanes})
+            kind = gate_kind_for_lock(rec["lock"])
+            return (make_gate(kind, lanes, threshold=threshold),
+                    {"source": "advisor", "gate": kind,
+                     "sim_lock": rec["lock"],
+                     "confidence": rec["confidence"],
+                     "throughput": rec["throughput"]})
         return (make_gate(lock, lanes, threshold=threshold),
                 {"source": "explicit", "gate": gate_kind_for_lock(lock)
                  if lock not in ("ticket", "twa", "fissile-twa", "twa-rw")

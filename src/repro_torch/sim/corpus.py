@@ -1,11 +1,13 @@
-"""The lockVM's inputs carried across from the reference: corpus scenarios.
+"""The lockVM's replayable scenarios and their ``.npz`` corpus format.
 
 The lockVM has no weights.  What it runs on is the packed sweep arrays
 (programs, initial pc/registers/memory, seeds, costs and fault schedules)
 and the replayable fuzz corpus under ``tests/corpus/*.npz``, written by the
-reference package's differential checker.  This module reads that corpus
-with its own copy of the on-disk layout, so the port's engines can replay
-every entry without importing the reference.
+reference package's differential checker.  This module holds the one reader
+and writer of that format in the port: the engines' tests replay the corpus
+through it, and the port's checker (:mod:`repro_torch.sim.check`) builds,
+saves and replays its scenarios with it.  A file written by either package
+loads in the other.
 
 Layout of one entry (``np.savez_compressed``): the arrays ``program``,
 ``init_pc``, ``init_regs``, ``init_mem`` and ``costs``, plus ``_meta`` — a
@@ -17,7 +19,7 @@ arg]`` rows) and the scalar fields below.
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as _dc_replace
 
 import numpy as np
 
@@ -30,9 +32,16 @@ _SCALAR_FIELDS = ("n_active", "wa_base", "wa_size", "horizon", "max_events",
 
 @dataclass(frozen=True)
 class Scenario:
-    """One corpus case: everything an engine needs to replay it."""
+    """One case: everything the oracle and an engine need to replay it.
 
-    kind: str
+    ``meta`` carries what the invariant checks read (``layout``, ``cap``,
+    ``expect_classes``, ...), the fault schedule (``faults``) and the
+    engine placement a case was pinned to (``torch_chunk``,
+    ``cuda_state``; the reference's ``sched_geometry`` and
+    ``pallas_chunk`` ride along untouched).
+    """
+
+    kind: str              # "random" | "composed" | "corpus-diff"
     lock: str | None
     program: np.ndarray    # (prog_len, 5) int32, padded
     init_pc: np.ndarray    # (n_threads,) int32
@@ -45,10 +54,23 @@ class Scenario:
     horizon: int
     max_events: int
     seed: int
-    n_threads: int
+    n_threads: int         # padded shapes shared by a batch
     mem_words: int
     n_locks: int
     meta: dict
+
+    def replace(self, **kw) -> "Scenario":
+        return _dc_replace(self, **kw)
+
+    def engine_kwargs(self) -> dict:
+        """Single-cell keyword arguments of the checker's oracles."""
+        return dict(n_threads=self.n_threads, mem_words=self.mem_words,
+                    n_locks=self.n_locks, init_pc=self.init_pc,
+                    init_regs=self.init_regs, init_mem=self.init_mem,
+                    n_active=self.n_active, seed=self.seed,
+                    wa_base=self.wa_base, wa_size=self.wa_size,
+                    horizon=self.horizon, max_events=self.max_events,
+                    costs=self.costs, faults=self.faults())
 
     def faults(self) -> FaultSchedule | None:
         """The scenario's fault schedule (``meta["faults"]``), or None."""
@@ -60,12 +82,22 @@ class Scenario:
 
 
 def load_scenario(path) -> Scenario:
-    """Read one ``tests/corpus/*.npz`` entry."""
+    """Read one corpus entry (``tests/corpus/*.npz``)."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["_meta"]).decode())
         arrays = {k: z[k] for k in _ARRAY_FIELDS}
     return Scenario(kind=meta["kind"], lock=meta["lock"], meta=meta["meta"],
                     **arrays, **{k: int(meta[k]) for k in _SCALAR_FIELDS})
+
+
+def save_scenario(path, scenario: Scenario, note: str = "") -> None:
+    """Write ``scenario`` as a replayable corpus entry (arrays + JSON)."""
+    meta = dict(kind=scenario.kind, lock=scenario.lock, note=note,
+                meta=scenario.meta,
+                **{k: int(getattr(scenario, k)) for k in _SCALAR_FIELDS})
+    np.savez_compressed(
+        path, _meta=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+        **{k: np.asarray(getattr(scenario, k)) for k in _ARRAY_FIELDS})
 
 
 def scenario_sweep_args(scenarios: list[Scenario]) -> tuple[np.ndarray, dict]:

@@ -697,6 +697,7 @@ def _check_cells(program, init_pc, init_regs, init_mem, n_active, seed,
     return n_cells, n_threads, mem_words
 
 
+@torch.inference_mode()
 def run_cells(program, init_pc, init_regs, init_mem, n_active, seed,
               horizon, max_events, costs, wa_base, wa_mask, wa_size,
               faults=None, *, n_locks: int, chunk: int | None = None) -> dict:
@@ -917,7 +918,8 @@ def run_sweep(programs: np.ndarray, *, mem_words: int, n_locks: int,
               horizon, max_events=2_000_000, costs=None,
               init_mem: np.ndarray | None = None,
               mode: str = "auto", chunk: int | None = None,
-              live_mem_words=None, faults=None, device=None) -> dict:
+              live_mem_words=None, faults=None, device=None,
+              cuda_state: str = "auto") -> dict:
     """Run a batch of independent simulations in one call.
 
     Every per-cell argument carries a leading batch axis of size B; scalars
@@ -930,6 +932,9 @@ def run_sweep(programs: np.ndarray, *, mem_words: int, n_locks: int,
         "torch" the plain PyTorch engine (any device), "auto" picks by
         device (:func:`choose_mode`).  Results are bit-identical.
       chunk:  "torch" only — steps between termination checks.
+      cuda_state: where the kernel keeps each cell's state, one of
+        :data:`repro_torch.sim.engine_cuda.STATE_PLACEMENTS` ("auto":
+        shared memory when it fits); "cuda" only.
       device: where to run; default ``cuda``, and with no GPU present and
         no device given the call raises.
 
@@ -953,6 +958,8 @@ def run_sweep(programs: np.ndarray, *, mem_words: int, n_locks: int,
                          f"device, got device={str(dev)!r}")
     if mode == "cuda" and chunk is not None:
         raise ValueError("chunk only applies to mode='torch'")
+    if mode == "torch" and cuda_state != "auto":
+        raise ValueError("cuda_state only applies to mode='cuda'")
     args = sweep_inputs(
         programs, mem_words=mem_words, init_pc=init_pc, init_regs=init_regs,
         n_active=n_active, seeds=seeds, wa_base=wa_base, wa_size=wa_size,
@@ -960,7 +967,7 @@ def run_sweep(programs: np.ndarray, *, mem_words: int, n_locks: int,
         init_mem=init_mem, faults=faults, device=dev)
     if mode == "cuda":
         from .engine_cuda import run_cells as run_kernel
-        out = run_kernel(*args, n_locks=n_locks)
+        out = run_kernel(*args, n_locks=n_locks, cuda_state=cuda_state)
     else:
         out = run_cells(*args, n_locks=n_locks, chunk=chunk)
     res = {k: out[k].cpu().numpy() for k in OUT_KEYS}

@@ -27,6 +27,12 @@ from .programs import PROG_LEN
 # state is larger runs from global scratch.
 SMEM_LIMIT = 232_448
 
+# Where a launch keeps each cell's state: "auto" (shared memory when it
+# fits, else global scratch), or either placement forced.  The two run
+# different code (rows in registers or in memory) and must agree bit for
+# bit; the differential checker draws one per case.
+STATE_PLACEMENTS = ("auto", "smem", "global")
+
 # Kernel launches made by run_cells (read by chip_smoke.py to show that a
 # sweep went through the kernel).
 launches = 0
@@ -69,15 +75,22 @@ def state_words_from_kernel(n_threads: int, mem_words: int, n_locks: int,
 
 def run_cells(program, init_pc, init_regs, init_mem, n_active, seed,
               horizon, max_events, costs, wa_base, wa_mask, wa_size,
-              faults=None, *, n_locks: int) -> dict:
+              faults=None, *, n_locks: int,
+              cuda_state: str = "auto") -> dict:
     """Run a batch of cells, given as int32 tensors, to completion.
 
     Takes the arguments of :func:`repro_torch.sim.engine.run_cells` (minus
     ``chunk``) and returns :data:`OUT_KEYS` as int32 tensors on the inputs'
     device.  On a CUDA device this is one kernel launch on the current
-    stream; it does not synchronise.
+    stream; it does not synchronise.  ``cuda_state`` is one of
+    :data:`STATE_PLACEMENTS`: ``"global"`` keeps every cell's state in the
+    global scratch buffer even when shared memory would hold it, and
+    ``"smem"`` raises for a cell too large for shared memory.
     """
     global launches
+    if cuda_state not in STATE_PLACEMENTS:
+        raise ValueError(f"cuda_state must be one of {STATE_PLACEMENTS}, "
+                         f"got {cuda_state!r}")
     dev = program.device
     if dev.type == "cpu":
         return engine.run_cells(program, init_pc, init_regs, init_mem,
@@ -106,8 +119,12 @@ def run_cells(program, init_pc, init_regs, init_mem, n_active, seed,
             "grant_value": empty(n_cells, mem_words),
             "lat_hist": empty(n_cells, N_LAT_BUCKETS)}
     state_bytes = cell_state_bytes(n_threads, mem_words, n_locks, prog_len)
-    scratch = (None if state_bytes <= SMEM_LIMIT
-               else empty(n_cells * state_bytes // 4))
+    if cuda_state == "smem" and state_bytes > SMEM_LIMIT:
+        raise ValueError(f"a cell's state ({state_bytes} bytes) does not fit "
+                         f"in shared memory ({SMEM_LIMIT} bytes)")
+    in_global = (cuda_state == "global"
+                 or (cuda_state == "auto" and state_bytes > SMEM_LIMIT))
+    scratch = empty(n_cells * state_bytes // 4) if in_global else None
     fault_ptrs = ([f.data_ptr() for f in faults] if n_faults
                   else [None] * 4)
     with torch.cuda.device(dev):

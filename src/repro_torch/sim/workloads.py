@@ -9,13 +9,15 @@ maximum shapes (threads, memory, program length).  ``run_contention`` /
 
 Every entry point takes ``device`` (default ``cuda``; with no GPU and no
 device given it raises) and passes it to :func:`repro_torch.sim.engine.
-run_sweep`.
+run_sweep`.  When ``$REPRO_RESULTS_STORE`` names a file, every sweep
+appends its cells there (:mod:`repro_torch.sim.results`).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -191,6 +193,9 @@ def run_sweeps(specs, *, mode: str = "auto", chunk: int | None = None,
     event budget, faults) may differ — fig3's ``twa-timo`` cells, which its
     generator caps at 32 threads, ride with the other locks' 64-thread
     cells this way.
+
+    With ``$REPRO_RESULTS_STORE`` set, every cell is appended to that
+    results store once, here (:func:`run_sweep` goes through this call).
     """
     programs, kwargs, rows = sweep_engine_args(specs)
     raw = engine.run_sweep(programs, **kwargs, mode=mode, chunk=chunk,
@@ -198,7 +203,18 @@ def run_sweeps(specs, *, mode: str = "auto", chunk: int | None = None,
     out = [[] for _ in specs]
     for i, (k, spec, cell, layout, sched) in enumerate(rows):
         out[k].append(_result_row(spec, cell, layout, sched, raw, i))
+    store_path = os.environ.get(RESULTS_STORE_ENV)
+    if store_path:
+        from .results.store import ResultsStore
+        ResultsStore(store_path).append_sweep(
+            [res for results in out for res in results])
     return out
+
+
+# Environment hook: when set, every run_sweeps() (and so every run_sweep())
+# appends its result rows to the JSONL results store at this path (see
+# repro_torch.sim.results).
+RESULTS_STORE_ENV = "REPRO_RESULTS_STORE"
 
 
 def _build_cell(spec: SweepSpec, cell: SweepCell):

@@ -28,6 +28,7 @@ the plain path's tokens and first-token logits within 1e-4.
 import dataclasses
 import os
 import re
+import secrets
 from pathlib import Path
 
 import numpy as np
@@ -155,6 +156,22 @@ def test_wrapper_checks_its_inputs():
     bad[2] = bad[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         engine_cuda.run_cells(*bad, n_locks=1)
+
+
+def test_state_placement_keyword_is_checked():
+    """``cuda_state``, on the kernel's wrapper and on the engine alike,
+    picks where the kernel keeps a cell's state; it belongs to the kernel
+    alone."""
+    progs, kw = _tiny_sweep_kwargs()
+    n_locks = kw.pop("n_locks")
+    args = engine.sweep_inputs(progs, **kw, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="cuda_state must be one of"):
+        engine_cuda.run_cells(*args, n_locks=n_locks, cuda_state="shared")
+    assert engine_cuda.STATE_PLACEMENTS == ("auto", "smem", "global")
+    progs, kw = _tiny_sweep_kwargs()
+    with pytest.raises(ValueError, match="cuda_state only applies"):
+        engine.run_sweep(progs, **kw, mode="torch", device="cpu",
+                         cuda_state="global")
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +420,67 @@ def test_kernel_state_in_global_scratch_matches_plain(cuda_device):
     n_locks = kw.pop("n_locks")
     _kernel_vs_plain(engine.sweep_inputs(progs, **kw, device=cuda_device),
                      n_locks)
+
+
+@pytest.mark.cuda
+def test_forced_state_placements_are_bit_identical(cuda_device):
+    """The checker's ``cuda_state`` pins: the same fuzz batch with every
+    cell's state forced into shared memory and into global scratch (rows in
+    memory, not registers) gives the same stats, which are the plain
+    engine's; a cell too large for shared memory refuses ``"smem"``."""
+    from repro_torch.sim.check import generate_batch, run_engine_batch
+    batch = generate_batch(64, 3, fault_fraction=0.5, trace_fraction=0.2)
+    outs = {}
+    for state in ("smem", "global"):
+        pinned = [s.replace(meta={**s.meta, "cuda_state": state})
+                  for s in batch]
+        before = engine_cuda.launches
+        outs[state] = run_engine_batch(pinned, "cuda", device=cuda_device)
+        assert engine_cuda.launches == before + 1
+    plain = run_engine_batch(
+        [s.replace(meta={**s.meta, "torch_chunk": 16}) for s in batch],
+        "torch", device="cpu")
+    for i, (a, b, c) in enumerate(zip(outs["smem"], outs["global"], plain)):
+        for key in engine.STAT_KEYS:
+            assert np.array_equal(a[key], b[key]), (i, key)
+            assert np.array_equal(a[key], c[key]), (i, key)
+    spec = SweepSpec(locks="twa", threads=40, seeds=1, wa_size=65536,
+                     horizon=500)
+    progs, kw, _ = sweep_engine_args([spec])
+    kw.pop("live_mem_words")
+    with pytest.raises(ValueError, match="does not fit"):
+        engine.run_sweep(progs, **kw, mode="cuda", device=cuda_device,
+                         cuda_state="smem")
+
+
+@pytest.mark.cuda
+def test_checker_cuda_lane_on_a_fresh_fault_batch(cuda_device):
+    """1,024 cases at a seed drawn anew, a quarter with fault schedules and
+    a tenth trace-compiled, through the kernel against the batch oracle: no
+    failing case but the reference's known ``twa-staged`` stall (no
+    differential), one launch per state placement, both placements
+    drawn."""
+    from repro_torch.sim.check import fuzz, generate_batch, reference_stall
+    seed = secrets.randbelow(1 << 31)
+    batch = generate_batch(1024, seed, fault_fraction=0.25,
+                           trace_fraction=0.1)
+    before = engine_cuda.launches
+    report = fuzz(batch, modes=("cuda",), sched_seed=seed,
+                  batch_oracle=True, device=cuda_device)
+    assert all(reference_stall(s, msgs) for _, s, msgs in report.failures), \
+        f"seed {seed}: " + report.summary()
+    assert engine_cuda.launches == before + 2
+    assert set(report.placements) == {"cuda:smem", "cuda:global"}
+    assert sum(report.placements.values()) == 1024
+
+
+@pytest.mark.cuda
+def test_checker_cuda_lane_replays_the_corpus(cuda_device):
+    from repro_torch.sim.check import failure_classes, replay_corpus
+    problems = replay_corpus(CORPUS, modes=("cuda",), device=cuda_device)
+    for path, probs in zip(CORPUS, problems):
+        expect = set(load_scenario(path).meta.get("expect_classes", []))
+        assert failure_classes(probs) == expect, (path.stem, probs[:4])
 
 
 @pytest.mark.cuda

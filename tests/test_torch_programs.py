@@ -191,8 +191,10 @@ def test_fault_schedules_match():
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch``, its subpackages (the lockVM, core, configs, the
     ticket-dispatch, selective-scan and RG-LRU kernels, models, serve,
-    the serve launcher and the benchmarks) and everything ``chip_smoke``
-    imports load without JAX or any ``repro`` module."""
+    the serve launcher, the benchmarks, the results store and its CLI, the
+    differential checker, every module under it and its CLI) and
+    everything ``chip_smoke`` imports load without JAX or any ``repro``
+    module."""
     code = textwrap.dedent("""
         import importlib.util, sys
         sys.path.insert(0, "src")
@@ -209,6 +211,22 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.launch.serve
         import repro_torch.bench.serve_profile
         import repro_torch.bench.kernel_bounds
+        import repro_torch.sim.results, repro_torch.sim.results.__main__
+        import repro_torch.sim.check, repro_torch.sim.check.__main__
+        import repro_torch.sim.check._fastcase
+        import repro_torch.sim.check.batch_oracle
+        import repro_torch.sim.check.coverage
+        import repro_torch.sim.check.generate
+        import repro_torch.sim.check.invariants
+        import repro_torch.sim.check.make_corpus
+        import repro_torch.sim.check.oracle
+        import repro_torch.sim.check.runner
+        import pkgutil
+        for pkg in (repro_torch.sim.check, repro_torch.sim.results):
+            names = {m.name for m in pkgutil.iter_modules(pkg.__path__)}
+            missing = {n for n in names
+                       if f"{pkg.__name__}.{n}" not in sys.modules}
+            assert not missing, missing
         repro_torch._build.ticket_constants_header()
         repro_torch._build.mamba_constants_header()
         repro_torch._build.rglru_constants_header()
