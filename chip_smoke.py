@@ -4,7 +4,8 @@
 
 Drives the port's paths on the card — the lockVM sweep behind the
 paper's fig3 and the results store and lock advisor it feeds, the
-differential checker's lane on the lockVM kernel, serving
+differential checker's lane on the lockVM kernel, the lockVM figures,
+the serve↔lockVM loop and the fuzz smoke suite, serving
 granite-moe-1b-a400m at full width through the ticket-FIFO ``ServeEngine``
 (its MoE routing plan through the routing-plan kernel, and through the
 ticket kernel), and serving falcon-mamba-7b and recurrentgemma-9b at full
@@ -19,7 +20,14 @@ and checks them:
    PyTorch engine on the card, bit-identical on all eight output stats, on
    the 14 ``tests/corpus`` entries, a fault sweep (preemptions, spurious
    wakes and aborts), cells of 130 threads (past the 128 whose rows the
-   kernel keeps in registers) and the fig3 cells at a reduced horizon.
+   kernel keeps in registers), ``figures_reduced`` (each lockVM figure's
+   own axes at horizon 2,000, one call per lock count: fig9's cost-grid
+   corners and ``twa-sem`` permits, fig10's ``twa-rw`` reader fractions
+   and fissile handover, fig12's preemption axis and fig7's
+   ``outside_work`` at 1 lock; fig8's collision counting at 4; fig2's
+   shared and private arrays at 8 locks and at 64, whose 284,672-word
+   cells run from global scratch) and the fig3 cells at a reduced
+   horizon.
 3. main path: ``repro_torch.sim.run_sweeps`` with ``mode="auto"`` over the
    full fig3 spec (13 locks at 1-64 threads, ``twa-timo`` at 1-32, seeds
    1-3, horizon 1.5M cycles), which must resolve to the kernel; then the
@@ -44,6 +52,22 @@ and checks them:
    must fail.
 4. the paper's fig3 claims on the kernel (ticket collapses, TWA stays flat
    and meets MCS, handover scaling).
+4a. figures: fig1, fig2, fig5-fig11 and fig12deg at the reference's full
+   specs through ``repro_torch.bench.run``'s suites on the card, each
+   suite's launch count set to 0 just before it: every engine call
+   resolves to the kernel, each figure's own assertions hold (fig12deg's
+   zero-fault column bit-identical to its ``faults=None`` sweep); one
+   line a suite with its rows, launches, wall and kernel seconds, the
+   largest cell's events, each launch's state placement (fig2's 64-lock
+   launch in global scratch) and its headline rows.
+4b. fig13: the serve↔lockVM loop end to end (gemma3-1b reduced, random
+   weights from a seeded generator): a trace recorded from a
+   continuous-batching serve, its replay through the kernel, tokens/s per
+   admission gate, ``recommend_lock``'s answer and the ``auto`` gate.
+4c. fuzz_smoke: the fuzz smoke suite at the reference's full size: the
+   differential stage through the plain engine and the kernel, the
+   mutation self-tests, and the host's batch-oracle stage, whose speedup
+   gate alone may fail as a recorded reference caveat (printed, counted).
 5. ticket kernel vs plain: the ticket-dispatch kernel against its plain
    version on the card, tickets and slots equal, on granite-moe's prefill
    and decode groups, 16 groups in one launch, a million arrivals in one
@@ -111,7 +135,10 @@ exits non-zero.  Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -153,6 +180,27 @@ CHECK_HORIZON = 10_000
 FIG3_ROWS = 13 * len(FIG3_THREADS) * 3 + len(TIMO_THREADS) * 3   # 291
 FUZZ_CASES = 1024
 CLAIMS_HORIZON = 800_000
+
+# The figures phase: every lockVM figure suite of repro_torch.bench.run at
+# the reference's full spec, with the rows each prints as its headline.
+FIGURE_SUITES = {
+    "fig1": ("fig1/throughput_ratio_63r_vs_0r",),
+    "fig2": ("fig2/locks=", "fig2/worst_penalty"),
+    "fig5": ("fig5/twa_over_ticket@64", "fig5/twa/threads=64/lat_p99",
+             "fig5/ticket/threads=64/lat_p99"),
+    "fig6": ("fig6[rrc]/twa_over_ticket@64",),
+    "fig7": ("fig7/twa/threads=64", "fig7/ticket/threads=64"),
+    "fig8": ("fig8/decay/",),
+    "fig9": ("fig9/sem_scaling", "fig9/ratio_span/"),
+    "fig10": ("fig10/read_only_gain", "fig10/fissile_over_twa@"),
+    "fig11": ("fig11/twa_over_ticket@64", "fig12/twa_over_ticket@64"),
+    "fig12deg": ("fig12deg/zero_fault_bitidentical",
+                 "fig12deg/fissile_over_ticket_retained",
+                 "fig12deg/retained/"),
+}
+# kernel_vs_plain's figures_reduced sets: each figure's own axes at this
+# horizon (the plain engine pays several ms a step on the card)
+FIGURES_REDUCED_HORIZON = 2_000
 
 
 def query_smi(fields: str) -> str:
@@ -1143,6 +1191,253 @@ def fuzz_cuda_phase(root: Path, dev) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def figures_reduced_sets(sim, horizon: int) -> list:
+    """(name, specs) of kernel_vs_plain's ``figures_reduced`` sets: each
+    figure's own axes at ``horizon``, one engine call per ``n_locks``.
+
+    fig9's cost-grid corners and ``twa-sem`` permits, fig10's ``twa-rw``
+    reader fractions and the fissile handover locks, fig12's preemption
+    axis at ``preempt_cost`` 2,048 and fig7's fixed ``outside_work`` share
+    one call at 1 lock; fig8's collision counting (waiting arrays of 8 and
+    2,048 slots, thresholds 1 and 4) runs at 4 locks; fig2's shared and
+    private arrays at 8 locks (shared memory) and 64 (284,672 words a
+    cell: global scratch)."""
+    spec = sim.SweepSpec
+    corners = tuple(dataclasses.replace(sim.DEFAULT_COSTS, C_INV=ci,
+                                        C_XFER=cx)
+                    for ci in (0, 48) for cx in (30, 180))
+    one_lock = [
+        spec(locks=("ticket", "twa", "mcs"), threads=32, seeds=1,
+             costs=corners, horizon=horizon),
+        spec(locks="twa-sem", threads=32, seeds=1, sem_permits=(1, 2, 4, 8),
+             horizon=horizon),
+        spec(locks="twa-rw", threads=16, seeds=1, cs_work=80, ncs_max=100,
+             reader_fraction=(0, 25, 50, 75, 90, 100), horizon=horizon),
+        spec(locks=("fissile-twa", "twa", "ticket"), threads=(1, 2, 16, 32),
+             seeds=1, horizon=horizon),
+        spec(locks=("ticket", "twa", "fissile-twa", "twa-timo"), threads=8,
+             seeds=1, cs_work=20, ncs_max=50, horizon=horizon,
+             max_events=2 * horizon, preempt_faults=(0, 2, 16),
+             preempt_cost=2048, fault_evt_span=horizon // 8),
+        spec(locks=("ticket", "twa", "mcs"), threads=(8, 64), seeds=1,
+             cs_work=20, outside_work=20, ncs_max=480, horizon=horizon,
+             collect_latency=True)]
+    fig2 = dict(locks="twa", threads=64, seeds=1, cs_work=50, ncs_max=100,
+                private_arrays=(False, True), horizon=horizon)
+    return [
+        ("figures_reduced/locks_1", one_lock),
+        ("figures_reduced/fig8_locks_4", [spec(
+            locks="twa", threads=(16, 64), seeds=1, wa_size=(8, 2048),
+            long_term_threshold=(1, 4), n_locks=4, count_collisions=True,
+            horizon=horizon)]),
+        ("figures_reduced/fig2_locks_8", [spec(**fig2, n_locks=8)]),
+        ("figures_reduced/fig2_locks_64", [spec(**fig2, n_locks=64)])]
+
+
+@contextlib.contextmanager
+def observe_lockvm(engine, engine_cuda):
+    """Record, while active, every ``engine.run_sweep`` call (its resolved
+    mode, cells and events) and every kernel launch (its cells, shapes,
+    state placement and device ms, by CUDA events around the launch).  The
+    launch count itself stays the wrapper's own."""
+    record = {"sweeps": [], "launches": []}
+    run_cells, run_sweep = engine_cuda.run_cells, engine.run_sweep
+
+    def launch(*args, n_locks, cuda_state="auto", **kw):
+        program, init_pc, init_mem = args[0], args[1], args[3]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run_cells(*args, n_locks=n_locks, cuda_state=cuda_state, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        record["launches"].append({
+            "cells": int(program.shape[0]), "threads": int(init_pc.shape[1]),
+            "mem_words": int(init_mem.shape[1]), "n_locks": n_locks,
+            "state": engine_cuda.state_placement(
+                int(init_pc.shape[1]), int(init_mem.shape[1]), n_locks,
+                int(program.shape[1]), cuda_state),
+            "ms": start.elapsed_time(end)})
+        return out
+
+    def sweep(*args, **kw):
+        res = run_sweep(*args, **kw)
+        record["sweeps"].append({
+            "mode": res["mode"], "cells": int(len(res["events"])),
+            "max_events": res["pad_stats"]["max_events"],
+            "sum_events": res["pad_stats"]["sum_events"]})
+        return res
+
+    engine_cuda.run_cells, engine.run_sweep = launch, sweep
+    try:
+        yield record
+    finally:
+        engine_cuda.run_cells, engine.run_sweep = run_cells, run_sweep
+
+
+def csv_rows(text: str) -> dict:
+    """``{name: (value, derived)}`` of a suite's ``name,value,derived``
+    rows."""
+    rows = {}
+    for line in text.splitlines():
+        name, value, derived = line.split(",", 2)
+        rows[name] = (value, derived)
+    return rows
+
+
+def run_observed(bench_run, name: str, dev, engine, engine_cuda, **kw):
+    """One suite of ``repro_torch.bench.run`` on the card, its launch count
+    set to 0 just before and read just after: ``(what run returns, rows,
+    launches, wall seconds, the observed sweeps and launches)``."""
+    buf = io.StringIO()
+    engine_cuda.launches = 0
+    t0 = time.perf_counter()
+    with observe_lockvm(engine, engine_cuda) as record, \
+            contextlib.redirect_stdout(buf):
+        out = bench_run.run_suite(name, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    launches = engine_cuda.launches
+    assert launches > 0, (name, launches)
+    assert launches == len(record["launches"]), (name, launches)
+    assert record["sweeps"] and all(
+        sw["mode"] == "cuda" for sw in record["sweeps"]), (name, record)
+    return out, csv_rows(buf.getvalue()), launches, wall, record
+
+
+def figures_phase(dev, engine, engine_cuda, bench_run) -> list:
+    """Each lockVM figure suite at the reference's full spec through the
+    kernel: every engine call resolved to ``mode`` ``"cuda"`` and launched
+    it, each figure's own assertions holding.  One JSON line a suite."""
+    lines = []
+    for name, headline in FIGURE_SUITES.items():
+        _, rows, launches, wall, record = run_observed(
+            bench_run, name, dev, engine, engine_cuda)
+        placements = [ln["state"] for ln in record["launches"]]
+        if name == "fig2":      # pools 1, 8, 64: the last from global scratch
+            assert [ln["n_locks"] for ln in record["launches"]] == \
+                [1, 8, 64], record["launches"]
+            assert placements == ["smem", "smem", "global"], placements
+        if name == "fig12deg":  # the fault sweep, then the faults=None one
+            assert rows["fig12deg/zero_fault_bitidentical"][0] == "1"
+            assert len(record["launches"]) == 2
+        lines.append({
+            "phase": "figures", "suite": name, "rows": len(rows),
+            "cells": sum(sw["cells"] for sw in record["sweeps"]),
+            "launches": launches, "wall_seconds": wall,
+            "kernel_seconds": sum(ln["ms"] for ln in record["launches"])
+            / 1e3,
+            "max_cell_events": max(sw["max_events"]
+                                   for sw in record["sweeps"]),
+            "sum_events": sum(sw["sum_events"] for sw in record["sweeps"]),
+            "launch_shapes": [
+                {k: ln[k] for k in ("cells", "threads", "mem_words",
+                                    "n_locks", "state", "ms")}
+                for ln in record["launches"]],
+            "headline": {k: v[0] for k, v in rows.items()
+                         if k.startswith(headline)}})
+    return lines
+
+
+def fig13_phase(dev, engine, engine_cuda, bench_run) -> dict:
+    """The serve↔lockVM loop end to end on the card (fig13 at the
+    reference's full spec): a trace recorded from a continuous-batching
+    serve, its lockVM replay through the kernel, tokens/s per admission
+    gate, the advisor's answer and the ``auto`` gate that instantiates
+    it."""
+    from repro_torch.serve.admission import gate_kind_for_lock
+    out, rows, launches, wall, record = run_observed(
+        bench_run, "fig13", dev, engine, engine_cuda)
+    sim_rows = out["sim_rows"]
+    assert all(r["mode"] == "cuda" for r in sim_rows)
+    assert rows["fig13/trace/requests"][0] == "10"
+    assert len(out["trace"]) == 10
+    e2e = {k.removeprefix("fig13/e2e/"): float(v[0])
+           for k, v in rows.items() if k.startswith("fig13/e2e/")}
+    assert e2e and all(math.isfinite(v) and v > 0 for v in e2e.values())
+    assert {k.split("/")[0] for k in e2e} == {
+        "ticket", "twa", "fissile-twa", "twa-rw"}, e2e
+    rec = out["recommend"]
+    assert out["auto_gate"] == gate_kind_for_lock(rec["lock"])
+    assert rows["fig13/loop/auto_gate"][0] == out["auto_gate"]
+    return {"phase": "fig13", "wall_seconds": wall, "launches": launches,
+            "kernel_seconds": sum(ln["ms"] for ln in record["launches"])
+            / 1e3,
+            "trace": {k.removeprefix("fig13/trace/"): v[0]
+                      for k, v in rows.items()
+                      if k.startswith("fig13/trace/")},
+            "sim_rows": len(sim_rows),
+            "sim_mode": sorted({r["mode"] for r in sim_rows}),
+            "sim_acq_per_cycle": {k.removeprefix("fig13/sim/"): float(v[0])
+                                  for k, v in rows.items()
+                                  if k.startswith("fig13/sim/")},
+            "e2e_tokens_per_s": e2e,
+            "recommend": {k: rec[k] for k in ("lock", "confidence",
+                                              "n_threads", "throughput")},
+            "auto_gate": out["auto_gate"]}
+
+
+def fuzz_smoke_phase(dev, engine, engine_cuda, fuzz_smoke) -> dict:
+    """The fuzz smoke suite on the card at the reference's full size: the
+    differential stage through the plain engine and the kernel, the
+    mutation self-tests through the kernel, and the host's batch-oracle
+    stage.  That stage's speedup gate (the batch path at least
+    ``SPEEDUP_GATE``× the sequential cases a second) is a property of the
+    host, and the card's host misses it with the reference's own referees
+    (``ROADMAP.md`` §3): the phase lets that one assertion through, prints
+    it and counts it; any other failure fails the run."""
+    from repro_torch.sim.check import generate_batch
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    scenarios = generate_batch(fuzz_smoke.CASES, fuzz_smoke.SEED)
+    engine_cuda.launches = 0
+    with observe_lockvm(engine, engine_cuda) as record, \
+            contextlib.redirect_stdout(buf):
+        report = fuzz_smoke.run_differential(scenarios, device=dev)
+        mutated = fuzz_smoke.run_mutation(scenarios, batch_oracle=False,
+                                          device=dev)
+        mutated_b = fuzz_smoke.run_mutation(scenarios, batch_oracle=True,
+                                            device=dev)
+    launches = engine_cuda.launches
+    assert launches > 0 and launches == len(record["launches"])
+    modes = sorted({sw["mode"] for sw in record["sweeps"]})
+    assert modes == ["cuda", "torch"], modes
+    assert sorted(report.placements) == [
+        "cuda:global", "cuda:smem", "torch:1", "torch:16", "torch:7"], \
+        report.placements
+    with contextlib.redirect_stdout(buf):
+        gate = fuzz_smoke.batch_gate(fuzz_smoke.BENCH_CASES)
+    caveats = []
+    try:
+        fuzz_smoke.check_batch_gate(gate)
+    except AssertionError as e:
+        if not (str(e).startswith("batch oracle ")
+                and gate["speedup"] < fuzz_smoke.SPEEDUP_GATE
+                and gate["divergences"] == gate["corpus_div"] == 0
+                and gate["impl"] == "c"):
+            raise
+        caveats.append(str(e))
+        print(f"fuzz_smoke: reference caveat (host speedup gate): {e}",
+              flush=True)
+    rows = csv_rows(buf.getvalue())
+    return {"phase": "fuzz_smoke", "cases": report.n_cases,
+            "modes": modes, "placements": report.placements,
+            "failures": len(report.failures),
+            "oracle_events": report.total_events,
+            "mutation_caught": len(mutated.failures),
+            "mutation_caught_batch": len(mutated_b.failures),
+            "kernel_launches": launches,
+            "engine_calls": len(record["sweeps"]),
+            "bench_cases": gate["bench_cases"],
+            "seq_cases_per_s": gate["seq_cps"],
+            "batch_cases_per_s": gate["batch_cps"],
+            "speedup": gate["speedup"],
+            "speedup_gate": fuzz_smoke.SPEEDUP_GATE,
+            "batch_divergences": gate["divergences"],
+            "corpus_divergences": gate["corpus_div"],
+            "oracle_impl": gate["impl"], "reference_caveats": caveats,
+            "rows": len(rows), "seconds": time.perf_counter() - t0}
+
+
 def check_claims(by: dict) -> None:
     """The fig3 inequalities of tests/test_sim_paper_claims.py."""
     for T in (1, 2, 4):
@@ -1179,6 +1474,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import _build
     from repro_torch import sim
+    from repro_torch.bench import fuzz_smoke
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench.fig13_serve_e2e import TRACE_ENV
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ref as scan_ref
@@ -1194,8 +1492,10 @@ def main() -> int:
     from repro_torch.sim.corpus import load_scenario, scenario_sweep_args
     from repro_torch.sim.workloads import RESULTS_STORE_ENV
 
-    # the sweeps here write to no results store but the phase's own
+    # the sweeps here write to no results store but the phase's own, and
+    # fig13 records its own trace
     os.environ.pop(RESULTS_STORE_ENV, None)
+    os.environ.pop(TRACE_ENV, None)
 
     root = Path(__file__).resolve().parent
     dev = torch.device("cuda", 0)
@@ -1267,12 +1567,17 @@ def main() -> int:
     wide_specs = [sim.SweepSpec(locks=("ticket", "twa"), threads=(130,),
                                 seeds=1, horizon=600, collect_latency=True)]
     sets = [("faults", fault_specs), ("rows_in_memory_T130", wide_specs),
+            *figures_reduced_sets(sim, FIGURES_REDUCED_HORIZON),
             ("fig3_reduced", fig3_specs(sim, CHECK_HORIZON))]
     for name, specs in sets:
         args, n_locks = spec_inputs(specs)
         if name == "faults":
             assert args[-1] is not None and bool((args[-1][0] != 0).any())
         checks.append(compare(name, args, n_locks, engine, engine_cuda))
+        checks[-1]["state"] = engine_cuda.state_placement(
+            int(args[1].shape[1]), int(args[3].shape[1]), n_locks,
+            int(args[0].shape[1]))
+    assert checks[-2]["state"] == "global", checks[-2]   # fig2, 64 locks
     emit({"phase": "kernel_vs_plain", "tolerance": "bit-identical",
           "seconds": time.perf_counter() - t0,
           "sets": [{k: v for k, v in c.items() if k != "out"}
@@ -1347,6 +1652,17 @@ def main() -> int:
               "low_contention_ticket_best_twa_close",
               "high_contention_ticket_collapses_twa_wins",
               "handover_scaling"]})
+
+    # ---- 4a. the lockVM figures at the reference's full specs
+    figures = figures_phase(dev, engine, engine_cuda, bench_run)
+    for line in figures:
+        emit(line)
+
+    # ---- 4b. fig13: the serve<->lockVM loop end to end
+    emit(fig13_phase(dev, engine, engine_cuda, bench_run))
+
+    # ---- 4c. the fuzz smoke suite with both engine modes
+    emit(fuzz_smoke_phase(dev, engine, engine_cuda, fuzz_smoke))
 
     # ---- 5. the ticket kernel against its plain version
     cfg = get_config(SERVE_ARCH)
@@ -1439,7 +1755,10 @@ def main() -> int:
         "main_path_ms": main_ms, "main_path_bound_ms": main_bound,
         "main_path_max_events": int(events.max()),
         "main_path_us_per_event": us_per_event,
-        "sm_clock_during_kernel": sm_clock}, {
+        "sm_clock_during_kernel": sm_clock,
+        "figure_launches": {ln["suite"]: ln["launches"] for ln in figures},
+        "figure_kernel_seconds": {ln["suite"]: ln["kernel_seconds"]
+                                  for ln in figures}}, {
         "name": "ticket_dispatch_run", "route": "cuda",
         "source": "src/repro_torch/csrc/ticket_dispatch.cu",
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",

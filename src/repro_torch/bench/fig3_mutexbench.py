@@ -22,13 +22,10 @@ import numpy as np
 from repro_torch.sim import SIM_LOCKS, SweepSpec, run_sweeps
 from repro_torch.sim.programs import TIMO_RING
 
+from .common import emit
+
 THREADS = (1, 2, 4, 8, 16, 32, 64)
 LOCKS = tuple(SIM_LOCKS)
-
-
-def emit(name: str, value, derived: str = "") -> None:
-    """One CSV row: name,value,derived."""
-    print(f"{name},{value},{derived}", flush=True)
 
 
 def thread_counts(lock: str, threads=THREADS) -> tuple:

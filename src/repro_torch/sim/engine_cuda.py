@@ -53,6 +53,24 @@ def cell_state_bytes(n_threads: int, mem_words: int, n_locks: int = 1,
     return 4 * words
 
 
+def state_placement(n_threads: int, mem_words: int, n_locks: int,
+                    prog_len: int = PROG_LEN, cuda_state: str = "auto") -> str:
+    """Where a launch keeps its cells' state, ``"smem"`` or ``"global"``:
+    ``cuda_state`` (one of :data:`STATE_PLACEMENTS`) when it forces one,
+    else shared memory when a cell's state fits it.  ``"smem"`` raises for
+    a cell too large for shared memory."""
+    if cuda_state not in STATE_PLACEMENTS:
+        raise ValueError(f"cuda_state must be one of {STATE_PLACEMENTS}, "
+                         f"got {cuda_state!r}")
+    state_bytes = cell_state_bytes(n_threads, mem_words, n_locks, prog_len)
+    if cuda_state == "smem" and state_bytes > SMEM_LIMIT:
+        raise ValueError(f"a cell's state ({state_bytes} bytes) does not fit "
+                         f"in shared memory ({SMEM_LIMIT} bytes)")
+    if cuda_state == "global" or state_bytes > SMEM_LIMIT:
+        return "global"
+    return "smem"
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("lockvm")
     if not getattr(lib, "_lockvm_typed", False):
@@ -118,12 +136,9 @@ def run_cells(program, init_pc, init_regs, init_mem, n_active, seed,
             "events": empty(n_cells), "sleeping": empty(n_cells),
             "grant_value": empty(n_cells, mem_words),
             "lat_hist": empty(n_cells, N_LAT_BUCKETS)}
+    in_global = state_placement(n_threads, mem_words, n_locks, prog_len,
+                                cuda_state) == "global"
     state_bytes = cell_state_bytes(n_threads, mem_words, n_locks, prog_len)
-    if cuda_state == "smem" and state_bytes > SMEM_LIMIT:
-        raise ValueError(f"a cell's state ({state_bytes} bytes) does not fit "
-                         f"in shared memory ({SMEM_LIMIT} bytes)")
-    in_global = (cuda_state == "global"
-                 or (cuda_state == "auto" and state_bytes > SMEM_LIMIT))
     scratch = empty(n_cells * state_bytes // 4) if in_global else None
     fault_ptrs = ([f.data_ptr() for f in faults] if n_faults
                   else [None] * 4)

@@ -371,6 +371,24 @@ def test_cell_state_bytes_fits_fig3_in_shared_memory():
     assert engine_cuda.cell_state_bytes(64, big) > engine_cuda.SMEM_LIMIT
 
 
+def test_state_placement_of_fig2_pools():
+    """fig2's private-array cells: 8 locks (37,376 memory words) fit shared
+    memory, 64 locks (284,672) run from global scratch; a forced placement
+    wins where it can."""
+    def place(n_locks, cuda_state="auto"):
+        layout = Layout(n_threads=64, n_locks=n_locks, private_arrays=True)
+        return engine_cuda.state_placement(64, layout.mem_words, n_locks,
+                                           cuda_state=cuda_state)
+    assert Layout(n_threads=64, n_locks=64,
+                  private_arrays=True).mem_words == 284_672
+    assert [place(n) for n in (1, 8, 64)] == ["smem", "smem", "global"]
+    assert place(8, "global") == "global" and place(8, "smem") == "smem"
+    with pytest.raises(ValueError, match="does not fit"):
+        place(64, "smem")
+    with pytest.raises(ValueError, match="cuda_state must be one of"):
+        place(8, "shared")
+
+
 # ---------------------------------------------------------------------------
 # Kernel vs plain engine (CUDA device only)
 # ---------------------------------------------------------------------------
@@ -481,6 +499,35 @@ def test_checker_cuda_lane_replays_the_corpus(cuda_device):
     for path, probs in zip(CORPUS, problems):
         expect = set(load_scenario(path).meta.get("expect_classes", []))
         assert failure_classes(probs) == expect, (path.stem, probs[:4])
+
+
+@pytest.mark.cuda
+def test_fig2_figure_kernel_matches_plain(cuda_device, monkeypatch):
+    """One reduced figure end to end on the card: fig2 at pools 8 and 64
+    (the 64-lock launch from global scratch) at horizon 1,000, through the
+    kernel and through the plain engine, prints the same rows."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.bench import fig2_interlock_interference as fig2
+
+    orig = workloads.run_sweep
+
+    def rows(mode):
+        monkeypatch.setattr(workloads, "run_sweep", lambda spec, **kw: orig(
+            dataclasses.replace(spec, horizon=1_000), mode=mode, **kw))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            fig2.run((8, 64), device=cuda_device)
+        return out.getvalue().splitlines()
+
+    before = engine_cuda.launches
+    kernel = rows("cuda")
+    assert engine_cuda.launches == before + 2
+    assert rows("torch") == kernel
+    assert engine_cuda.launches == before + 2
+    assert len(kernel) == 3 and kernel[1].startswith("fig2/locks=64,")
 
 
 @pytest.mark.cuda

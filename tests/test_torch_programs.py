@@ -191,10 +191,12 @@ def test_fault_schedules_match():
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch``, its subpackages (the lockVM, core, configs, the
     ticket-dispatch, selective-scan and RG-LRU kernels, models, serve,
-    the serve launcher, the benchmarks, the results store and its CLI, the
+    the serve launcher, the benchmarks — every module of
+    ``repro_torch.bench``: the figures, the serve↔lockVM loop, the fuzz
+    smoke and the suite runner — the results store and its CLI, the
     differential checker, every module under it and its CLI) and
-    everything ``chip_smoke`` imports load without JAX or any ``repro``
-    module."""
+    everything ``chip_smoke`` imports load without JAX, any ``repro``
+    module or the reference's ``benchmarks`` scripts."""
     code = textwrap.dedent("""
         import importlib.util, sys
         sys.path.insert(0, "src")
@@ -211,6 +213,19 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.launch.serve
         import repro_torch.bench.serve_profile
         import repro_torch.bench.kernel_bounds
+        import repro_torch.bench.kernel_pair
+        import repro_torch.bench.common, repro_torch.bench.run
+        import repro_torch.bench.fig1_invalidation_diameter
+        import repro_torch.bench.fig2_interlock_interference
+        import repro_torch.bench.fig5_throw, repro_torch.bench.fig6_rrc
+        import repro_torch.bench.fig7_stress_latency
+        import repro_torch.bench.fig8_collisions
+        import repro_torch.bench.fig9_cost_grid
+        import repro_torch.bench.fig10_rw_scaling
+        import repro_torch.bench.fig11_locktorture
+        import repro_torch.bench.fig12_degradation
+        import repro_torch.bench.fig13_serve_e2e
+        import repro_torch.bench.fuzz_smoke
         import repro_torch.sim.results, repro_torch.sim.results.__main__
         import repro_torch.sim.check, repro_torch.sim.check.__main__
         import repro_torch.sim.check._fastcase
@@ -222,7 +237,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.sim.check.oracle
         import repro_torch.sim.check.runner
         import pkgutil
-        for pkg in (repro_torch.sim.check, repro_torch.sim.results):
+        import repro_torch.bench
+        for pkg in (repro_torch.sim.check, repro_torch.sim.results,
+                    repro_torch.bench):
             names = {m.name for m in pkgutil.iter_modules(pkg.__path__)}
             missing = {n for n in names
                        if f"{pkg.__name__}.{n}" not in sys.modules}
@@ -234,7 +251,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                                                       "chip_smoke.py")
         spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                            "benchmarks"))
         assert not bad, bad
         print("clean")
     """)
