@@ -5,12 +5,14 @@
 Drives the port's paths on the card — the lockVM sweep behind the
 paper's fig3 and the results store and lock advisor it feeds, the
 differential checker's lane on the lockVM kernel, the lockVM figures,
-the serve↔lockVM loop and the fuzz smoke suite, serving
-granite-moe-1b-a400m at full width through the ticket-FIFO ``ServeEngine``
-(its MoE routing plan through the routing-plan kernel, and through the
-ticket kernel), and serving falcon-mamba-7b and recurrentgemma-9b at full
-width through the same engine — through the entry points a user calls,
-and checks them:
+the serve↔lockVM loop and the fuzz smoke suite, the host-lock suites
+(Table 1, host threads, admission), serving granite-moe-1b-a400m at full
+width through the ticket-FIFO ``ServeEngine`` (its MoE routing plan
+through the routing-plan kernel, and through the ticket kernel), serving
+falcon-mamba-7b and recurrentgemma-9b at full width through the same
+engine, and training granite-moe-1b-a400m at full width on the paper's
+host-side locks (with and without the ticket kernel) — through the entry
+points a user calls, and checks them:
 
 1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
    ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu``,
@@ -68,14 +70,22 @@ and checks them:
    differential stage through the plain engine and the kernel, the
    mutation self-tests, and the host's batch-oracle stage, whose speedup
    gate alone may fail as a recorded reference caveat (printed, counted).
+4d. host_locks: ``repro_torch.bench.run``'s ``table1``, ``threads`` and
+   ``admission`` suites on the card's host: Table 1 measured on the port's
+   lock classes equal to the reference's numbers (``TABLE1``), every
+   host-thread cell acquiring, and the admission suite's gates FIFO, its
+   ticket/TWA ratios of hot-counter polls and hot-key reads above 1, its
+   lockVM sweep (the reference's geometry, full horizon) resolving to the
+   kernel (launches counted); every row printed.
 5. ticket kernel vs plain: the ticket-dispatch kernel against its plain
    version on the card, tickets and slots equal, on granite-moe's prefill
    and decode groups, 16 groups in one launch, a million arrivals in one
    group, 1 to 3,418 experts, a skewed draw that drops pairs, ids
    outside [0, E) and ids drawn in [-2E, 2E) (wrapped once, or filled with
    INT32_MIN, as the reference's ``dispatch_ref``); the kernel alone under
-   ``torch.profiler`` at the decode and a 256-token prefill group, beside
-   the device time of a one-element ``torch.add`` (the launch floor).
+   ``torch.profiler`` at the decode and a 256-token prefill group, and at
+   a train step's MoE layer (8 groups of 4,096 arrivals), beside the
+   device time of a one-element ``torch.add`` (the launch floor).
    Then the MoE routing-plan kernel against its plain version
    (``plan_ref``) on the card, every output equal but the aux loss's gate
    sums (rtol 1e-6: summed in another order), on seeded softmax gates at
@@ -126,6 +136,22 @@ and checks them:
    ``scan="torch"`` as in phase 8.  A reduced float32 model on the card,
    on a prompt longer than its window, agrees with the same model on the
    CPU.
+11. train: ``repro_torch.launch.train.main`` on granite-moe-1b-a400m at full
+   width (24 layers, d 1,024, 32 experts top-8, bf16, random weights from a
+   seeded generator), batch 8 × seq 512, 6 steps with the Prefetcher on
+   the default TWA lock and a checkpoint every 3 steps into a temporary
+   directory (free disk space printed first; a save that cannot be
+   written fails the phase): every loss finite, step 0's within 10% of
+   ln(vocab); the median step time after the first, tokens/s, peak memory,
+   the checkpoints' bytes and seconds; the last checkpoint restored bit for
+   bit; a run resumed from step 3 (its losses within ``TRAIN_LOSS_RTOL`` of
+   the uninterrupted run's); 3 steps with ``--use-pallas``, the ticket
+   kernel launched once a MoE layer and step (72), step 0's loss
+   bit-identical to the plain plan's and the others within the tolerance.
+12. train_devices: reduced float32 granite-moe, falcon-mamba and
+   recurrentgemma take 3 steps on the card and on the CPU from the same
+   weights and batches (the plain routing plan and scans under autograd):
+   losses within ``DEVICES_LOSS_RTOL``.
 
 Each phase prints one JSON line.  Before the last line come the kernel
 table (a JSON object with key ``kernels``) and the ``nvidia-smi`` name and
@@ -143,6 +169,7 @@ import json
 import math
 import os
 import secrets
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -201,6 +228,35 @@ FIGURE_SUITES = {
 # kernel_vs_plain's figures_reduced sets: each figure's own axes at this
 # horizon (the plain engine pays several ms a step on the card)
 FIGURES_REDUCED_HORIZON = 2_000
+
+# The host_locks phase: Table 1 as the reference's table1() measures it
+# (algorithm: NPath lock, NPath unlock, cyclomatic lock, cyclomatic
+# unlock), and the admission suite's ratios that must exceed 1.
+TABLE1 = {"ticket": (2, 1, 2, 1), "twa": (72, 1, 10, 1),
+          "twa-staged": (180, 1, 11, 1), "mcs": (6, 5, 4, 5)}
+ADMISSION_RATIOS = ("admission/grant_polls_ticket_over_twa",
+                    "admission/dist/hot_key_load_ratio_ticket_over_twa")
+
+# The train phase: granite-moe-1b-a400m at full width through
+# repro_torch.launch.train, checkpointed at step TRAIN_CKPT_EVERY and
+# resumed from it; then TRAIN_PALLAS_STEPS steps through the ticket kernel.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_PALLAS_STEPS = 3
+# |loss - loss of the same step in another run| / loss, for steps after a
+# backward pass on the card (its scatter-adds sum with atomics, so two runs
+# need not agree bit for bit): the spread measured was 2.0e-5 at most, and
+# a step moves the loss by about 2e-3 of itself, which a resume that lost
+# the moments would show.  Step 0's loss comes before any such sum and is
+# compared exactly with --use-pallas.
+TRAIN_LOSS_RTOL = 1e-4
+# step 0's loss within 10% of ln(vocab): random weights predict uniformly
+TRAIN_LOSS0_RTOL = 0.1
+# the train_devices phase: reduced float32 models, 3 steps on the card and
+# on the CPU from the same weights; losses within this relative tolerance
+DEVICES_ARCHS = (SERVE_ARCH, MAMBA_ARCH, GRIFFIN_ARCH)
+DEVICES_STEPS = 3
+DEVICES_LOSS_RTOL = 1e-5
 
 
 def query_smi(fields: str) -> str:
@@ -356,11 +412,16 @@ def ticket_phase(dev, kernel, ref, moe_capacity, cfg) -> dict:
                      "dropped": int((s < 0).sum()) - int((t < 0).sum()),
                      "max_abs_err": err})
     timed = {}
-    for name, lp in (("decode", None), ("prefill_Lp256", 256)):
-        n = cfg.top_k * (SERVE_LANES if lp is None else lp)
-        cap = moe_capacity(cfg, SERVE_LANES if lp is None else lp)
-        ids = torch.from_numpy(np.random.default_rng(lp or 0).integers(
-            0, cfg.n_experts, size=(1, n)).astype(np.int32)).to(dev)
+    # (name, tokens a group, groups, seed of the ids): the serve's decode
+    # group and a 256-token prefill, and a train step's MoE layer (a group
+    # a sequence)
+    for name, tokens, groups, seed in (
+            ("decode", SERVE_LANES, 1, 0), ("prefill_Lp256", 256, 1, 256),
+            ("train", TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ)):
+        n = cfg.top_k * tokens
+        cap = moe_capacity(cfg, tokens)
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.n_experts, size=(groups, n)).astype(np.int32)).to(dev)
         ms = launch_ms(lambda: kernel.ticket_dispatch(ids, cfg.n_experts,
                                                       cap))
         device_ms, floor_ms = profiled_ms(
@@ -369,8 +430,9 @@ def ticket_phase(dev, kernel, ref, moe_capacity, cfg) -> dict:
         plain = launch_ms(lambda: ref.dispatch_ref(ids, cfg.n_experts, cap,
                                                    grouped=True))
         # id read once, ticket and slot written once; one counter step each
-        bound, bound_by = bound_ms(12 * n, n)
-        timed[name] = {"arrivals": n, "E": cfg.n_experts, "capacity": cap,
+        bound, bound_by = bound_ms(12 * n * groups, n * groups)
+        timed[name] = {"arrivals": n, "groups": groups, "E": cfg.n_experts,
+                       "capacity": cap,
                        "ms": ms, "device_ms": device_ms,
                        "launch_floor_ms": floor_ms, "plain_ms": plain,
                        "bound_ms": bound, "bound_by": bound_by}
@@ -1438,6 +1500,215 @@ def fuzz_smoke_phase(dev, engine, engine_cuda, fuzz_smoke) -> dict:
             "rows": len(rows), "seconds": time.perf_counter() - t0}
 
 
+def host_locks_phase(dev, engine, engine_cuda, bench_run) -> dict:
+    """The host-lock suites of ``repro_torch.bench.run`` on the card's host:
+    Table 1 equal to the reference's, the host-thread microbenchmark, and
+    the admission suite, whose lockVM sweep must resolve to the kernel and
+    whose ticket/TWA ratios must exceed 1, every gate FIFO."""
+    out = {"phase": "host_locks", "suites": {}}
+    for name in ("table1", "threads"):
+        buf = io.StringIO()
+        engine_cuda.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench_run.run_suite(name, device=dev)
+        rows = csv_rows(buf.getvalue())
+        assert engine_cuda.launches == 0, (name, engine_cuda.launches)
+        out["suites"][name] = {"wall_seconds": time.perf_counter() - t0,
+                               "rows": {k: v[0] for k, v in rows.items()}}
+    t1 = out["suites"]["table1"]["rows"]
+    got = {lk: tuple(int(t1[f"table1/{lk}/{m}"]) for m in (
+        "npath_lock", "npath_unlock", "cyclomatic_lock", "cyclomatic_unlock"))
+        for lk in TABLE1}
+    assert got == TABLE1, got
+    assert t1["table1/ordering_ok"] == "1"
+    threads = out["suites"]["threads"]["rows"]
+    assert len(threads) == 12 and all(int(v) > 0 for v in threads.values()), \
+        threads
+    _, rows, launches, wall, record = run_observed(
+        bench_run, "admission", dev, engine, engine_cuda)
+    for key in ADMISSION_RATIOS:
+        assert float(rows[key][0]) > 1, (key, rows[key])
+    fifo = {k: v[1] for k, v in rows.items()
+            if k.endswith("/grant_polls_per_handover")}
+    assert len(fifo) == 4 and all(v == "fifo_ok=True" for v in fifo.values()), \
+        fifo
+    sim = {k: float(v[0]) for k, v in rows.items()
+           if k.startswith("admission/sim/")}
+    assert len(sim) == 8 and all(v > 0 for v in sim.values()), sim
+    out["suites"]["admission"] = {
+        "wall_seconds": wall, "launches": launches,
+        "modes": sorted({sw["mode"] for sw in record["sweeps"]}),
+        "kernel_seconds": sum(ln["ms"] for ln in record["launches"]) / 1e3,
+        "cells": sum(sw["cells"] for sw in record["sweeps"]),
+        "rows": {k: list(v) for k, v in rows.items()}}
+    return out
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes (a NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() == 2:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    elif a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def train_phase(dev, train_main, ckpt, tree, ticket_kernel,
+                plan_kernel) -> dict:
+    """granite-moe-1b-a400m at full width through ``launch.train.main``:
+    TRAIN_STEPS steps of TRAIN_BATCH × TRAIN_SEQ tokens with the Prefetcher
+    on the default TWA lock and a checkpoint every TRAIN_CKPT_EVERY steps;
+    the saved state restored bit for bit; a run resumed from the first
+    checkpoint; TRAIN_PALLAS_STEPS steps with ``--use-pallas``, the ticket
+    kernel launched in every MoE layer's forward."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE_ARCH)
+    ln_vocab = math.log(cfg.vocab)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    base = ["--arch", SERVE_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--device", str(dev)]
+    out = {"phase": "train", "arch": SERVE_ARCH, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "lock": os.environ.get("REPRO_LOCK", "twa"),
+           "loss_rtol": TRAIN_LOSS_RTOL}
+
+    def run(argv, name):
+        ticket_kernel.launches = plan_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = train_main(base + argv)
+        wall = time.perf_counter() - t0
+        losses = res["losses"]
+        assert all(math.isfinite(x) for x in losses), (name, losses)
+        ms = float(np.median(res["step_seconds"][1:])) * 1e3
+        out[name] = {
+            "argv": argv, "losses": losses, "start_step": res["start_step"],
+            "wall_seconds": wall,
+            "step_ms": [t * 1e3 for t in res["step_seconds"]],
+            "median_step_ms_after_first": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "ticket_launches": ticket_kernel.launches,
+            "plan_launches": plan_kernel.launches,
+            "checkpoints": res["checkpoints"],
+            "log": buf.getvalue().splitlines()}
+        assert plan_kernel.launches == 0, (name, plan_kernel.launches)
+        return res
+
+    try:
+        disk = shutil.disk_usage(tmp)
+        out["disk_free_gb_before_save"] = disk.free / 1e9
+        print(f"chip_smoke: train checkpoints in {tmp}, "
+              f"{disk.free / 1e9:.1f} GB free", file=sys.stderr, flush=True)
+        full = run(["--steps", str(TRAIN_STEPS), "--ckpt-dir", tmp,
+                    "--ckpt-every", str(TRAIN_CKPT_EVERY)], "plain")
+        losses = full["losses"]
+        assert len(losses) == TRAIN_STEPS and full["start_step"] == 0
+        assert _rel(losses[0], ln_vocab) <= TRAIN_LOSS0_RTOL, \
+            (losses[0], ln_vocab)
+        assert out["plain"]["ticket_launches"] == 0
+        saved = [c["step"] for c in full["checkpoints"]]
+        assert saved == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                                   TRAIN_CKPT_EVERY)), saved
+        # the state saved last, read back: bit for bit
+        t0 = time.perf_counter()
+        back, step = ckpt.restore(tmp, step=TRAIN_STEPS,
+                                  like=full["final_state"])
+        torch.cuda.synchronize(dev)
+        out["restore_seconds"] = time.perf_counter() - t0
+        saved_leaves = tree.flatten_with_path(full["final_state"])
+        back_leaves = tree.flatten_with_path(back)
+        assert step == TRAIN_STEPS and list(back_leaves) == list(saved_leaves)
+        bad = [k for k in saved_leaves
+               if not _same_bits(back_leaves[k], saved_leaves[k])]
+        assert not bad, bad
+        out["restored_leaves_bit_identical"] = len(saved_leaves)
+        out["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in saved_leaves.values())
+        del back, back_leaves, saved_leaves, full["final_state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume from the first checkpoint
+        for name in os.listdir(tmp):
+            if name != f"step_{TRAIN_CKPT_EVERY:08d}":
+                shutil.rmtree(os.path.join(tmp, name))
+        resumed = run(["--steps", str(TRAIN_STEPS), "--ckpt-dir", tmp,
+                       "--resume"], "resumed")
+        assert resumed["start_step"] == TRAIN_CKPT_EVERY
+        tail = losses[TRAIN_CKPT_EVERY:]
+        rel = [_rel(a, b) for a, b in zip(resumed["losses"], tail)]
+        out["resumed"]["max_rel_diff"] = max(rel)
+        out["resumed"]["first_loss_bit_identical"] = \
+            resumed["losses"][0] == tail[0]
+        assert len(rel) == len(tail) and max(rel) <= TRAIN_LOSS_RTOL, rel
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the ticket kernel in every MoE layer's forward
+        pallas = run(["--steps", str(TRAIN_PALLAS_STEPS), "--use-pallas"],
+                     "use_pallas")
+        n_moe = cfg.n_layers * TRAIN_PALLAS_STEPS
+        assert out["use_pallas"]["ticket_launches"] == n_moe, \
+            (out["use_pallas"]["ticket_launches"], n_moe)
+        assert pallas["losses"][0] == losses[0], (pallas["losses"][0],
+                                                  losses[0])
+        rel = [_rel(a, b) for a, b in zip(pallas["losses"], losses)]
+        out["use_pallas"]["max_rel_diff"] = max(rel)
+        assert max(rel) <= TRAIN_LOSS_RTOL, rel
+        del pallas
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_devices_phase(dev, model, train_step, optim, tree) -> dict:
+    """Reduced float32 models (granite-moe, falcon-mamba, recurrentgemma)
+    take DEVICES_STEPS steps on the card and on the CPU from the same
+    weights and batches: the plain routing plan and scans under autograd
+    on the card agree with the CPU's within DEVICES_LOSS_RTOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_batch
+
+    out = {"phase": "train_devices", "loss_rtol": DEVICES_LOSS_RTOL,
+           "archs": {}}
+    for arch in DEVICES_ARCHS:
+        cfg = get_config(arch).reduced()
+        weights = tree.tree_map(lambda t: t.numpy(), model.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        batches = [synthetic_batch(cfg, step=s, batch=4, seq=64)
+                   for s in range(DEVICES_STEPS)]
+        losses = {}
+        for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            opt = optim.AdamW()
+            params = model.params_from_numpy(cfg, weights, device=device)
+            state = train_step.TrainState(params, opt.init(params))
+            step = train_step.build_train_step(cfg, opt)
+            run = []
+            for b in batches:
+                state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                        for k, v in b.items()})
+                run.append(float(m["loss"]))
+            losses[label] = run
+        rel = [_rel(a, b) for a, b in zip(losses["card"], losses["cpu"])]
+        assert all(math.isfinite(x) for x in losses["card"]), losses
+        assert max(rel) <= DEVICES_LOSS_RTOL, (arch, losses)
+        out["archs"][arch] = {"losses": losses, "max_rel_diff": max(rel)}
+    return out
+
+
 def check_claims(by: dict) -> None:
     """The fig3 inequalities of tests/test_sim_paper_claims.py."""
     for T in (1, 2, 4):
@@ -1472,8 +1743,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch import _build
-    from repro_torch import sim
+    from repro_torch import _build, ckpt, optim, sim, tree
     from repro_torch.bench import fuzz_smoke
     from repro_torch.bench import run as bench_run
     from repro_torch.bench.fig13_serve_e2e import TRACE_ENV
@@ -1491,6 +1761,8 @@ def main() -> int:
     from repro_torch.sim import engine, engine_cuda
     from repro_torch.sim.corpus import load_scenario, scenario_sweep_args
     from repro_torch.sim.workloads import RESULTS_STORE_ENV
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import train_step
 
     # the sweeps here write to no results store but the phase's own, and
     # fig13 records its own trace
@@ -1664,6 +1936,10 @@ def main() -> int:
     # ---- 4c. the fuzz smoke suite with both engine modes
     emit(fuzz_smoke_phase(dev, engine, engine_cuda, fuzz_smoke))
 
+    # ---- 4d. the host-lock suites: Table 1, host threads, admission
+    host_locks = host_locks_phase(dev, engine, engine_cuda, bench_run)
+    emit(host_locks)
+
     # ---- 5. the ticket kernel against its plain version
     cfg = get_config(SERVE_ARCH)
     ticket = ticket_phase(dev, ticket_kernel, ticket_ref, moe_capacity, cfg)
@@ -1736,10 +2012,21 @@ def main() -> int:
         [small.layer_kinds().count("rglru"), 0, 0])
     emit(griffin)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. train granite-moe-1b-a400m at full width
+    train = train_phase(dev, train_main, ckpt, tree, ticket_kernel,
+                        plan_kernel)
+    emit(train)
+
+    # ---- 12. reduced models train alike on the card and on the CPU
+    emit(train_devices_phase(dev, model, train_step, optim, tree))
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
     dec = ticket["timed"]["decode"]
     pre = ticket["timed"]["prefill_Lp256"]
+    ttr = ticket["timed"]["train"]
     pdec = plan["timed"]["decode"]
     ppre = plan["timed"]["prefill_Lp256"]
     print(json.dumps({"kernels": [{
@@ -1757,6 +2044,7 @@ def main() -> int:
         "main_path_us_per_event": us_per_event,
         "sm_clock_during_kernel": sm_clock,
         "figure_launches": {ln["suite"]: ln["launches"] for ln in figures},
+        "admission_launches": host_locks["suites"]["admission"]["launches"],
         "figure_kernel_seconds": {ln["suite"]: ln["kernel_seconds"]
                                   for ln in figures}}, {
         "name": "ticket_dispatch_run", "route": "cuda",
@@ -1764,6 +2052,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",
         "launches": served["ticket_launches"],
         "launches_on": "serve, dispatch='ticket'",
+        "train_launches": train["use_pallas"]["ticket_launches"],
+        "train_launches_on": f"train, use_pallas=True, "
+                             f"{TRAIN_PALLAS_STEPS} steps",
         "max_abs_err": max(c["max_abs_err"] for c in ticket["sets"]),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
         "launch_floor_ms": dec["launch_floor_ms"], "plain_ms": dec["plain_ms"],
@@ -1774,7 +2065,12 @@ def main() -> int:
         "prefill_Lp256_ms": pre["ms"],
         "prefill_Lp256_device_ms": pre["device_ms"],
         "prefill_Lp256_plain_ms": pre["plain_ms"],
-        "prefill_Lp256_bound_ms": pre["bound_ms"]}, {
+        "prefill_Lp256_bound_ms": pre["bound_ms"],
+        "train_group_ms": ttr["ms"], "train_group_device_ms": ttr["device_ms"],
+        "train_group_plain_ms": ttr["plain_ms"],
+        "train_group_bound_ms": ttr["bound_ms"],
+        "train_group": f"{ttr['groups']} groups of {ttr['arrivals']} "
+                       f"arrivals"}, {
         "name": "moe_plan_run", "route": "cuda",
         "source": "src/repro_torch/csrc/moe_plan.cu",
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",

@@ -1,12 +1,14 @@
-"""Benchmark runner of the port — one module per paper figure, the
-serve↔lockVM loop and the fuzz smoke.  Prints ``name,value,derived`` CSV.
+"""Benchmark runner of the port — one module per paper table and figure,
+the serve↔lockVM loop, the host-lock benchmarks (``table1``, ``threads``,
+``admission``) and the fuzz smoke.  Prints ``name,value,derived`` CSV.
 
     PYTHONPATH=src python -m repro_torch.bench.run [--only fig3,fig5]
         [--smoke] [--results store.jsonl] [--device cuda|cpu]
 
 The counterpart of the reference's runner (``benchmarks/run.py``), over the
 suites the port has.  ``--smoke`` asks each suite that supports it (fig8,
-fig9, fig10, fig12deg, fig13, fuzz) for the reference's reduced grid.
+fig9, fig10, fig12deg, fig13, admission, fuzz) for the reference's reduced
+grid.
 ``--results PATH`` persists every figure's sweep cells into the JSONL
 results store at PATH (the ``REPRO_RESULTS_STORE`` hook in
 ``repro_torch.sim.workloads.run_sweeps``), which ``python -m
@@ -27,6 +29,7 @@ import time
 from .common import emit, header
 
 SUITES = [
+    ("table1", "repro_torch.bench.table1_complexity"),
     ("fig1", "repro_torch.bench.fig1_invalidation_diameter"),
     ("fig2", "repro_torch.bench.fig2_interlock_interference"),
     ("fig3", "repro_torch.bench.fig3_mutexbench"),
@@ -39,6 +42,8 @@ SUITES = [
     ("fig11", "repro_torch.bench.fig11_locktorture"),
     ("fig12deg", "repro_torch.bench.fig12_degradation"),
     ("fig13", "repro_torch.bench.fig13_serve_e2e"),
+    ("threads", "repro_torch.bench.threads_microbench"),
+    ("admission", "repro_torch.bench.framework_admission"),
     ("fuzz", "repro_torch.bench.fuzz_smoke"),
 ]
 

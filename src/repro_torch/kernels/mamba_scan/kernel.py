@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from ... import _build
+from .. import refuse_autograd
 from . import ref
 
 # Threads of one block: THREADS // LANES channels.
@@ -112,6 +113,7 @@ def selective_scan(x, dt, A, B, C, D_skip, h0=None
         raise ValueError(f"empty or too large scan: batch {Bt}, L {L}, D {D}")
     if dev.type == "cpu":
         return ref.selective_scan_ref(x, dt, A, B, C, D_skip, h0)
+    refuse_autograd("selective-scan", x, dt, A, B, C, D_skip, h0)
     if dev.type != "cuda":
         raise ValueError(f"the scan kernel runs on CUDA tensors, got {dev}")
     y = torch.empty_like(x)

@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from ... import _build
+from .. import refuse_autograd
 from . import ref
 
 # Channels of one block (the chain warp's lanes), so that one sequence at
@@ -109,6 +110,7 @@ def rglru_scan(a, b, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"empty or too large scan: batch {Bt}, L {L}, D {D}")
     if dev.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
+    refuse_autograd("RG-LRU", a, b, h0)
     if dev.type != "cuda":
         raise ValueError(f"the RG-LRU kernel runs on CUDA tensors, got {dev}")
     y = torch.empty_like(a)

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from ... import _build
+from .. import refuse_autograd
 from . import kernel, ref
 
 # One lane an expert in the top-k: E <= 32.
@@ -94,6 +95,7 @@ def moe_plan(gates_full: torch.Tensor, top_k: int, capacity: int,
     dev = gates_full.device
     if dev.type == "cpu":
         return ref.plan_ref(gates_full, top_k, capacity, gate_dtype)
+    refuse_autograd("routing-plan", gates_full)
     if dev.type != "cuda":
         raise ValueError(f"the routing-plan kernel runs on CUDA tensors, "
                          f"got {dev}")

@@ -1,2 +1,2 @@
 """The model stack in PyTorch: layers and the decoder built from them
-(attention and MoE layer kinds so far)."""
+(attention, MoE, Mamba and RG-LRU layer kinds), and its training loss."""

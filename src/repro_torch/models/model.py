@@ -3,7 +3,8 @@ a KV, ring or recurrent-state cache, for the attention decoders (dense and
 MoE, full and sliding-window), the Mamba-1 stack and the Griffin hybrid.
 
 A port of the reference's ``repro/models/model.py`` for layer kinds
-``global``, ``local``, ``mamba`` and ``rglru``.  Parameters keep the
+``global``, ``local``, ``mamba`` and ``rglru``, with its training loss
+(:func:`loss_fn`).  Parameters keep the
 reference's tree so that the two packages can compute with the same
 weights (:func:`params_from_numpy`):
 ``{"embed", "final_norm", "stack": {"slot<j>": {name: (P, ...)}},
@@ -218,11 +219,16 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
 
 def _layers(params, cfg: ArchConfig):
     """(kind, layer params, where) in depth order: period i's slots, then
-    the tail; ``where`` is ("stack", slot, i) or ("tail", i)."""
+    the tail; ``where`` is ("stack", slot, i) or ("tail", i).  Each stacked
+    leaf is unbound once into its P views, so that a backward pass stacks
+    the P layers' gradients in one tensor (indexing each view apart would
+    give every layer a zero-filled gradient of the whole stack)."""
+    stack = {j: {k: v.unbind(0) for k, v in slot.items()}
+             for j, slot in params["stack"].items()} if cfg.n_periods else {}
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.layer_pattern):
-            yield kind, {k: v[i] for k, v in params["stack"][f"slot{j}"]
-                         .items()}, ("stack", f"slot{j}", i)
+            yield kind, {k: v[i] for k, v in stack[f"slot{j}"].items()}, \
+                ("stack", f"slot{j}", i)
     for i, kind in enumerate(cfg.tail_kinds):
         yield kind, params["tail"][i], ("tail", i)
 
@@ -342,6 +348,51 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
                            for j, cs in stack_caches.items()},
                  "tail": tail_caches}
     return logits, aux_total, cache
+
+
+# The (dispatch, scan) modes of a training forward, by ``use_pallas``: the
+# plain routing plan and scans, or the plain plan around the ticket kernel,
+# whose outputs are integers, so the gates stay differentiable.  No kernel
+# has a backward pass, so neither mode reaches the routing-plan kernel or
+# a scan kernel.
+TRAIN_MODES = {False: ("torch", "torch"), True: ("ticket", "torch")}
+
+
+def train_modes(cfg: ArchConfig, use_pallas: bool) -> tuple[str, str]:
+    """``(dispatch, scan)`` of :func:`loss_fn`; with ``use_pallas`` a model
+    with Mamba or RG-LRU layers raises, as the reference cannot train those
+    through its kernels either."""
+    recurrent = sorted({"mamba", "rglru"} & set(cfg.layer_kinds()))
+    if use_pallas and recurrent:
+        raise ValueError(
+            f"use_pallas=True trains through the ticket-dispatch kernel "
+            f"only: {cfg.name} has {', '.join(recurrent)} layers, whose scan "
+            "kernels have no backward pass; train it with use_pallas=False")
+    return TRAIN_MODES[bool(use_pallas)]
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, *,
+            use_pallas: bool = False):
+    """Next-token cross entropy + MoE aux.  Returns (loss, metrics).
+
+    The reference's ``loss_fn``: the cross entropy runs over the padded
+    vocab (its tail masked to -1e30 by the forward), labels below 0 are
+    masked out, and the label's logit is picked by a gather where the
+    reference contracts a one-hot (the same value: one term is non-zero).
+    ``use_pallas`` picks the forward's modes (:func:`train_modes`)."""
+    dispatch, scan = train_modes(cfg, use_pallas)
+    logits, aux, _ = forward(params, batch, cfg, dispatch=dispatch, scan=scan)
+    labels = batch["labels"].long()
+    mask = (labels >= 0).to(torch.float32)
+    labels = labels.clamp_min(0)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = (nll * mask).sum() / denom
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux,
+                  "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------

@@ -189,14 +189,17 @@ def test_fault_schedules_match():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch``, its subpackages (the lockVM, core, configs, the
-    ticket-dispatch, selective-scan and RG-LRU kernels, models, serve,
-    the serve launcher, the benchmarks — every module of
-    ``repro_torch.bench``: the figures, the serve↔lockVM loop, the fuzz
-    smoke and the suite runner — the results store and its CLI, the
-    differential checker, every module under it and its CLI) and
-    everything ``chip_smoke`` imports load without JAX, any ``repro``
-    module or the reference's ``benchmarks`` scripts."""
+    """``repro_torch``, its subpackages (the lockVM, core — every module:
+    the host locks, the KV stores, the distributed locks, the complexity
+    measure — configs, the ticket-dispatch, selective-scan and RG-LRU
+    kernels, models, serve, the runtime, data, optimizer, train-step and
+    checkpoint modules, both launchers, the benchmarks — every module of
+    ``repro_torch.bench``: the figures, Table 1, the host-thread and
+    admission benchmarks, the serve↔lockVM loop, the fuzz smoke and the
+    suite runner — the results store and its CLI, the differential
+    checker, every module under it and its CLI) and everything
+    ``chip_smoke`` imports load without JAX, any ``repro`` module or the
+    reference's ``benchmarks`` scripts."""
     code = textwrap.dedent("""
         import importlib.util, sys
         sys.path.insert(0, "src")
@@ -226,6 +229,22 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.bench.fig12_degradation
         import repro_torch.bench.fig13_serve_e2e
         import repro_torch.bench.fuzz_smoke
+        import repro_torch.bench.table1_complexity
+        import repro_torch.bench.threads_microbench
+        import repro_torch.bench.framework_admission
+        import repro_torch.core.ticket, repro_torch.core.twa
+        import repro_torch.core.mcs, repro_torch.core.variants
+        import repro_torch.core.kvstore, repro_torch.core.distributed
+        import repro_torch.core.complexity, repro_torch.tree
+        import repro_torch.runtime, repro_torch.runtime.heartbeat
+        import repro_torch.runtime.straggler, repro_torch.runtime.elastic
+        import repro_torch.data, repro_torch.data.synthetic
+        import repro_torch.data.pipeline
+        import repro_torch.optim, repro_torch.optim.adamw
+        import repro_torch.optim.schedules, repro_torch.optim.compress
+        import repro_torch.train.train_step
+        import repro_torch.ckpt, repro_torch.ckpt.checkpoint
+        import repro_torch.launch.train
         import repro_torch.sim.results, repro_torch.sim.results.__main__
         import repro_torch.sim.check, repro_torch.sim.check.__main__
         import repro_torch.sim.check._fastcase
@@ -239,7 +258,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         import pkgutil
         import repro_torch.bench
         for pkg in (repro_torch.sim.check, repro_torch.sim.results,
-                    repro_torch.bench):
+                    repro_torch.bench, repro_torch.core, repro_torch.runtime,
+                    repro_torch.data, repro_torch.optim, repro_torch.train,
+                    repro_torch.ckpt, repro_torch.launch):
             names = {m.name for m in pkgutil.iter_modules(pkg.__path__)}
             missing = {n for n in names
                        if f"{pkg.__name__}.{n}" not in sys.modules}
