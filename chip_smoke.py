@@ -10,9 +10,11 @@ the serve↔lockVM loop and the fuzz smoke suite, the host-lock suites
 width through the ticket-FIFO ``ServeEngine`` (its MoE routing plan
 through the routing-plan kernel, and through the ticket kernel), serving
 falcon-mamba-7b and recurrentgemma-9b at full width through the same
-engine, and training granite-moe-1b-a400m at full width on the paper's
-host-side locks (with and without the ticket kernel) — through the entry
-points a user calls, and checks them:
+engine, training granite-moe-1b-a400m at full width on the paper's
+host-side locks (with and without the ticket kernel, with and without
+remat), training hubert-xlarge at full width and depth, qwen2-vl-72b's
+vision frontend and M-RoPE at full width (4 layers), and the five example
+scripts — through the entry points a user calls, and checks them:
 
 1. card and build: the card's name and power limit; ``csrc/lockvm.cu``,
    ``csrc/ticket_dispatch.cu``, ``csrc/mamba_scan.cu``,
@@ -146,12 +148,38 @@ points a user calls, and checks them:
    the checkpoints' bytes and seconds; the last checkpoint restored bit for
    bit; a run resumed from step 3 (its losses within ``TRAIN_LOSS_RTOL`` of
    the uninterrupted run's); 3 steps with ``--use-pallas``, the ticket
-   kernel launched once a MoE layer and step (72), step 0's loss
-   bit-identical to the plain plan's and the others within the tolerance.
-12. train_devices: reduced float32 granite-moe, falcon-mamba and
-   recurrentgemma take 3 steps on the card and on the CPU from the same
-   weights and batches (the plain routing plan and scans under autograd):
-   losses within ``DEVICES_LOSS_RTOL``.
+   kernel launched twice a MoE layer and step (144: the forward, and the
+   backward pass's recompute of each period under the config's
+   ``remat="full"``), step 0's loss bit-identical to the plain plan's and
+   the others within the tolerance; 6 steps with ``remat="none"`` (every
+   activation kept), step 0's loss bit-identical, their time and peak
+   memory beside the remat run's.
+12. train_devices: reduced float32 granite-moe, falcon-mamba,
+   recurrentgemma, qwen2-vl (three distinct M-RoPE streams) and hubert
+   take 3 steps on the card and on the CPU from the same weights and
+   batches (the plain routing plan and scans under autograd): losses
+   within ``DEVICES_LOSS_RTOL``.
+13. train_hubert: ``repro_torch.launch.train.main`` on hubert-xlarge at
+   full width and depth (48 layers, d 1,280, bidirectional, 504 classes,
+   bf16, random weights from a seeded generator), batch 8 × 512 synthetic
+   frames, 6 steps, with the config's ``remat="full"`` and with
+   ``"none"``: losses finite, step 0's within 10% of ln(504) and equal
+   under both; ms a step after the first, frames/s and peak memory each.
+14. frontends: qwen2-vl-72b at full width (d 8,192, 64 heads and 8 KV
+   heads of 128, d_ff 29,568, vocab 152,064, M-RoPE (16, 24, 24), bf16)
+   cut to 4 layers, batch 2 × 1,024 with the synthetic vision span (the
+   first 256 positions) and three distinct position streams: ``loss_fn``
+   and its backward pass twice (no optimizer step: it would not fit), the
+   loss within 10% of ln(vocab) + σ²/2, the cross entropy of random
+   weights whose logits have std σ = 0.02·sqrt(d_model) (13.57 here, where
+   ln(vocab) is 11.93), gradients finite and non-zero on the layers; a
+   prefill of 1,023 positions and ``decode_step`` at 1,023 give the full
+   prefill's last argmax wherever the top-2 margin exceeds twice their
+   logit difference; ms of the forward, backward and decode, peak memory.
+15. examples: ``repro_torch.examples`` quickstart, lock_playground,
+   elastic_restart, serve_continuous_batching and train_moe at their own
+   specs on the card (the lockVM sweeps through the kernel, launches
+   counted), each script's own checks holding.
 
 Each phase prints one JSON line.  Before the last line come the kernel
 table (a JSON object with key ``kernels``) and the ``nvidia-smi`` name and
@@ -254,9 +282,24 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_LOSS0_RTOL = 0.1
 # the train_devices phase: reduced float32 models, 3 steps on the card and
 # on the CPU from the same weights; losses within this relative tolerance
-DEVICES_ARCHS = (SERVE_ARCH, MAMBA_ARCH, GRIFFIN_ARCH)
+VLM_ARCH = "qwen2-vl-72b"
+AUDIO_ARCH = "hubert-xlarge"
+DEVICES_ARCHS = (SERVE_ARCH, MAMBA_ARCH, GRIFFIN_ARCH, VLM_ARCH, AUDIO_ARCH)
 DEVICES_STEPS = 3
 DEVICES_LOSS_RTOL = 1e-5
+# The train_hubert phase: hubert-xlarge at full width and depth through
+# repro_torch.launch.train, with the config's remat ("full") and "none".
+AUDIO_BATCH, AUDIO_SEQ, AUDIO_STEPS = 8, 512, 6
+# The frontends phase: qwen2-vl-72b at full width with its depth cut to
+# VLM_LAYERS (80 layers, 72.7 B parameters, do not fit one card), one loss
+# and backward pass (an optimizer step holds old and new parameters and
+# float32 moments, about 22 bytes a parameter: 132 GB at 4 layers), and
+# decode at the last position against a prefill of all of them.
+VLM_LAYERS = 4
+VLM_BATCH, VLM_SEQ = 2, 1024
+# The examples phase: each script of repro_torch.examples at its own spec.
+EXAMPLES = ("quickstart", "lock_playground", "elastic_restart",
+            "serve_continuous_batching", "train_moe")
 
 
 def query_smi(fields: str) -> str:
@@ -1506,6 +1549,7 @@ def host_locks_phase(dev, engine, engine_cuda, bench_run) -> dict:
     the admission suite, whose lockVM sweep must resolve to the kernel and
     whose ticket/TWA ratios must exceed 1, every gate FIFO."""
     out = {"phase": "host_locks", "suites": {}}
+    t_phase = time.perf_counter()
     for name in ("table1", "threads"):
         buf = io.StringIO()
         engine_cuda.launches = 0
@@ -1542,6 +1586,7 @@ def host_locks_phase(dev, engine, engine_cuda, bench_run) -> dict:
         "kernel_seconds": sum(ln["ms"] for ln in record["launches"]) / 1e3,
         "cells": sum(sw["cells"] for sw in record["sweeps"]),
         "rows": {k: list(v) for k, v in rows.items()}}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1560,14 +1605,58 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-def train_phase(dev, train_main, ckpt, tree, ticket_kernel,
+@contextlib.contextmanager
+def configured(launch_train, cfg):
+    """``launch_train.main`` building ``cfg`` for ``--arch cfg.name`` (a
+    config the command line cannot name: another remat, a cut depth)."""
+    orig = launch_train.get_config
+    launch_train.get_config = lambda name: cfg if name == cfg.name \
+        else orig(name)
+    try:
+        yield
+    finally:
+        launch_train.get_config = orig
+
+
+def timed_train(dev, launch_train, argv, cfg=None, kernels=()) -> tuple:
+    """One ``launch_train.main(argv)`` run (with ``cfg`` in place of the
+    named config, if given), its stdout captured, the launch counts of
+    ``kernels`` set to 0 just before it: (result, summary).  The summary
+    has the median step time after the first and the peak memory."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), (
+            configured(launch_train, cfg) if cfg is not None
+            else contextlib.nullcontext()):
+        res = launch_train.main(argv)
+    wall = time.perf_counter() - t0
+    losses = res["losses"]
+    assert all(math.isfinite(x) for x in losses), (argv, losses)
+    summary = {
+        "argv": argv, "losses": losses, "start_step": res["start_step"],
+        "wall_seconds": wall, "step_ms": [t * 1e3 for t in
+                                          res["step_seconds"]],
+        "median_step_ms_after_first":
+            float(np.median(res["step_seconds"][1:])) * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "log": buf.getvalue().splitlines()}
+    return res, summary
+
+
+def train_phase(dev, launch_train, ckpt, tree, ticket_kernel,
                 plan_kernel) -> dict:
     """granite-moe-1b-a400m at full width through ``launch.train.main``:
     TRAIN_STEPS steps of TRAIN_BATCH × TRAIN_SEQ tokens with the Prefetcher
     on the default TWA lock and a checkpoint every TRAIN_CKPT_EVERY steps;
     the saved state restored bit for bit; a run resumed from the first
     checkpoint; TRAIN_PALLAS_STEPS steps with ``--use-pallas``, the ticket
-    kernel launched in every MoE layer's forward."""
+    kernel launched in every MoE layer's forward and again in its
+    recompute (the config's remat is ``"full"``); and TRAIN_STEPS steps
+    with ``remat="none"``, whose step 0 loss must equal the remat run's
+    bit for bit (the forward is the same)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(SERVE_ARCH)
@@ -1577,30 +1666,18 @@ def train_phase(dev, train_main, ckpt, tree, ticket_kernel,
             str(TRAIN_SEQ), "--device", str(dev)]
     out = {"phase": "train", "arch": SERVE_ARCH, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "lock": os.environ.get("REPRO_LOCK", "twa"),
-           "loss_rtol": TRAIN_LOSS_RTOL}
+           "remat": cfg.remat, "loss_rtol": TRAIN_LOSS_RTOL}
+    t_phase = time.perf_counter()
 
-    def run(argv, name):
-        ticket_kernel.launches = plan_kernel.launches = 0
-        torch.cuda.reset_peak_memory_stats(dev)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            res = train_main(base + argv)
-        wall = time.perf_counter() - t0
-        losses = res["losses"]
-        assert all(math.isfinite(x) for x in losses), (name, losses)
-        ms = float(np.median(res["step_seconds"][1:])) * 1e3
-        out[name] = {
-            "argv": argv, "losses": losses, "start_step": res["start_step"],
-            "wall_seconds": wall,
-            "step_ms": [t * 1e3 for t in res["step_seconds"]],
-            "median_step_ms_after_first": ms,
-            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
-            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "ticket_launches": ticket_kernel.launches,
-            "plan_launches": plan_kernel.launches,
-            "checkpoints": res["checkpoints"],
-            "log": buf.getvalue().splitlines()}
+    def run(argv, name, run_cfg=None):
+        res, summary = timed_train(dev, launch_train, base + argv, run_cfg,
+                                   (ticket_kernel, plan_kernel))
+        summary["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / summary[
+            "median_step_ms_after_first"] * 1e3
+        summary["ticket_launches"] = ticket_kernel.launches
+        summary["plan_launches"] = plan_kernel.launches
+        summary["checkpoints"] = res["checkpoints"]
+        out[name] = summary
         assert plan_kernel.launches == 0, (name, plan_kernel.launches)
         return res
 
@@ -1655,10 +1732,12 @@ def train_phase(dev, train_main, ckpt, tree, ticket_kernel,
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the ticket kernel in every MoE layer's forward
+        # the ticket kernel in every MoE layer's forward, and again in
+        # the backward pass's recompute of each checkpointed period
         pallas = run(["--steps", str(TRAIN_PALLAS_STEPS), "--use-pallas"],
                      "use_pallas")
-        n_moe = cfg.n_layers * TRAIN_PALLAS_STEPS
+        passes = 1 if cfg.remat == "none" else 2
+        n_moe = cfg.n_layers * TRAIN_PALLAS_STEPS * passes
         assert out["use_pallas"]["ticket_launches"] == n_moe, \
             (out["use_pallas"]["ticket_launches"], n_moe)
         assert pallas["losses"][0] == losses[0], (pallas["losses"][0],
@@ -1667,28 +1746,42 @@ def train_phase(dev, train_main, ckpt, tree, ticket_kernel,
         out["use_pallas"]["max_rel_diff"] = max(rel)
         assert max(rel) <= TRAIN_LOSS_RTOL, rel
         del pallas
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # every activation kept: the same losses, more memory
+        none = run(["--steps", str(TRAIN_STEPS)], "remat_none",
+                   dataclasses.replace(cfg, remat="none"))
+        assert none["losses"][0] == losses[0], (none["losses"][0], losses[0])
+        rel = [_rel(a, b) for a, b in zip(none["losses"], losses)]
+        out["remat_none"]["max_rel_diff"] = max(rel)
+        assert max(rel) <= TRAIN_LOSS_RTOL, rel
+        del none
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
 def train_devices_phase(dev, model, train_step, optim, tree) -> dict:
-    """Reduced float32 models (granite-moe, falcon-mamba, recurrentgemma)
-    take DEVICES_STEPS steps on the card and on the CPU from the same
-    weights and batches: the plain routing plan and scans under autograd
-    on the card agree with the CPU's within DEVICES_LOSS_RTOL."""
+    """Reduced float32 models (granite-moe, falcon-mamba, recurrentgemma,
+    qwen2-vl with three distinct position streams, hubert) take
+    DEVICES_STEPS steps on the card and on the CPU from the same weights
+    and batches: the plain routing plan and scans under autograd on the
+    card agree with the CPU's within DEVICES_LOSS_RTOL."""
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
 
     out = {"phase": "train_devices", "loss_rtol": DEVICES_LOSS_RTOL,
            "archs": {}}
+    t_phase = time.perf_counter()
     for arch in DEVICES_ARCHS:
         cfg = get_config(arch).reduced()
         weights = tree.tree_map(lambda t: t.numpy(), model.init_params(
             cfg, torch.Generator().manual_seed(0), device="cpu"))
-        batches = [synthetic_batch(cfg, step=s, batch=4, seq=64)
+        batches = [frontend_batch(synthetic_batch, cfg, s, 4, 64)
                    for s in range(DEVICES_STEPS)]
         losses = {}
         for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -1706,6 +1799,281 @@ def train_devices_phase(dev, model, train_step, optim, tree) -> dict:
         assert all(math.isfinite(x) for x in losses["card"]), losses
         assert max(rel) <= DEVICES_LOSS_RTOL, (arch, losses)
         out["archs"][arch] = {"losses": losses, "max_rel_diff": max(rel)}
+    out["dots_policy"] = {arch: dots_policy_probe(
+        dev, model, get_config(arch).reduced())
+        for arch in (SERVE_ARCH, "deepseek-7b")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def frontend_batch(synthetic_batch, cfg, step: int, batch: int,
+                   seq: int) -> dict:
+    """The synthetic batch of ``step``, a vision model's with three distinct
+    position streams (``repro_torch.data.mrope_positions``)."""
+    from repro_torch.data import mrope_positions
+
+    b = synthetic_batch(cfg, step=step, batch=batch, seq=seq)
+    if cfg.frontend == "vision_patches":
+        b["positions"] = mrope_positions(step, batch, seq,
+                                         int(b["vision_mask"][0].sum()))
+    return b
+
+
+def dots_policy_probe(dev, model, cfg) -> dict:
+    """The ``"dots"`` remat policy's decisions on this torch: one reduced
+    float32 loss and backward pass with ``remat="dots"`` on the card,
+    recording what ``models.model._dots_policy`` decides for each product
+    (``mm``/``addmm``/``bmm``) of the forward pass.  It must keep exactly
+    the batch-free products (q, k, v, the output projection, and the MLP's
+    three or the router: ``torch.einsum`` lowers them to ``mm``/``addmm`` or
+    a ``bmm`` of batch extent 1) and recompute the batched ones, and give
+    the loss of ``remat="none"``."""
+    from repro_torch.data import synthetic_batch
+
+    aten = torch.ops.aten
+    products = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+    keep = torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    seen = {}
+    orig = model._dots_policy
+
+    def policy(ctx, op, *args, **kw):
+        d = orig(ctx, op, *args, **kw)
+        if not ctx.is_recompute and op in products:
+            what = "save" if d == keep else "recompute"
+            key = f"{op}:batch={args[0].shape[0]}:{what}"
+            seen[key] = seen.get(key, 0) + 1
+        return d
+
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_batch(cfg, step=0, batch=2, seq=32).items()}
+    losses = {}
+    model._dots_policy = policy
+    try:
+        for remat in ("none", "dots"):
+            run_cfg = dataclasses.replace(cfg, remat=remat)
+            leaves = [p.requires_grad_(True) for p in _leaves(params)]
+            loss, _ = model.loss_fn(params, batch, run_cfg)
+            torch.autograd.grad(loss, leaves)
+            losses[remat] = loss.item()
+    finally:
+        model._dots_policy = orig
+    kept = sum(n for k, n in seen.items() if k.endswith(":save"))
+    expected = cfg.n_layers * (4 + (1 if cfg.n_experts else 3))
+    assert kept == expected, (seen, expected)
+    for k in seen:
+        batch_free = k.startswith(("aten.mm.", "aten.addmm.")) or \
+            ":batch=1:" in k
+        assert k.endswith(":save") == batch_free, seen
+    assert losses["dots"] == losses["none"], losses
+    return {"decisions": seen, "kept": kept, "losses": losses}
+
+
+def train_hubert_phase(dev, launch_train, cfg, batch: int = AUDIO_BATCH,
+                       seq: int = AUDIO_SEQ, steps: int = AUDIO_STEPS) -> dict:
+    """hubert-xlarge (``cfg``) through ``launch.train.main``: ``steps`` steps
+    of ``batch`` × ``seq`` synthetic frames (seed 0) with the Prefetcher on
+    the default TWA lock, with the config's remat and then ``"none"``:
+    losses finite, step 0's within 10% of ln(vocab) and equal under both
+    (the forward is the same), the later ones within TRAIN_LOSS_RTOL."""
+    out = {"phase": "train_hubert", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "batch": batch, "seq": seq,
+           "dtype": cfg.dtype, "loss_rtol": TRAIN_LOSS_RTOL}
+    t0 = time.perf_counter()
+    for remat in dict.fromkeys((cfg.remat, "none")):
+        run_cfg = dataclasses.replace(cfg, remat=remat)
+        _, summary = timed_train(dev, launch_train, [
+            "--arch", cfg.name, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--device", str(dev)], run_cfg)
+        summary["frames_per_s"] = batch * seq / summary[
+            "median_step_ms_after_first"] * 1e3
+        out[f"remat_{remat}"] = summary
+        loss0 = summary["losses"][0]
+        assert _rel(loss0, math.log(cfg.vocab)) <= TRAIN_LOSS0_RTOL, \
+            (remat, loss0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    first, none = out[f"remat_{cfg.remat}"]["losses"], out["remat_none"][
+        "losses"]
+    assert none[0] == first[0], (none[0], first[0])
+    out["max_rel_diff"] = max(_rel(a, b) for a, b in zip(none, first))
+    assert out["max_rel_diff"] <= TRAIN_LOSS_RTOL, out["max_rel_diff"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def random_init_loss(cfg) -> float:
+    """The cross entropy of random weights: the head's normal × 0.02
+    entries over unit-RMS features give logits of std σ = 0.02·sqrt(d),
+    and a softmax over V logits of std σ costs ln(V) + σ²/2 in expectation.
+    At qwen2-vl's d 8,192, σ²/2 = 1.64, so ln(V) alone is not the loss of
+    an untrained model there (at granite's or hubert's width it is within
+    5%)."""
+    return math.log(cfg.vocab) + (0.02 ** 2) * cfg.d_model / 2
+
+
+def frontends_phase(dev, model, synthetic_batch, cfg, batch: int = VLM_BATCH,
+                    seq: int = VLM_SEQ) -> dict:
+    """qwen2-vl (``cfg``, random weights from a seeded generator): a batch
+    whose first quarter is the synthetic vision span with three distinct
+    M-RoPE streams; ``loss_fn`` and its backward pass twice (the loss
+    within 10% of :func:`random_init_loss`, every gradient finite, the
+    layers' non-zero);
+    then, under ``torch.no_grad``, a prefill of all ``seq`` positions
+    against a prefill of the first ``seq`` − 1 and one ``decode_step`` at
+    position ``seq`` − 1 (which carries ``seq`` − 1 in all three streams,
+    as decode broadcasts one position), into a cache of ``seq``: the same
+    argmax wherever the top-2 margin exceeds twice the largest logit
+    difference."""
+    out = {"phase": "frontends", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "mrope_sections": list(cfg.mrope_sections), "remat": cfg.remat,
+           "dtype": cfg.dtype, "batch": batch, "seq": seq}
+    t_phase = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    torch.cuda.synchronize(dev)
+    out["init_params_s"] = time.perf_counter() - t_phase
+    b = frontend_batch(synthetic_batch, cfg, 0, batch, seq)
+    b["positions"][:, :, -1] = seq - 1
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    out["vision_positions"] = int(b["vision_mask"][0].sum())
+    leaves = list(_leaves(params))
+    layer_leaves = [v for slot in params["stack"].values()
+                    for v in slot.values()]
+    for p in leaves:
+        p.requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    passes = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss, _ = model.loss_fn(params, tb, cfg)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        by_leaf = {id(p): g for p, g in zip(leaves, grads)}
+        passes.append({
+            "loss": loss.item(), "forward_ms": (t1 - t0) * 1e3,
+            "backward_ms": (t2 - t1) * 1e3,
+            "grads_finite": all(bool(torch.isfinite(g).all())
+                                for g in grads),
+            "layer_grads_nonzero": all(bool(by_leaf[id(p)].any())
+                                       for p in layer_leaves)})
+        del loss, grads, by_leaf
+    out["peak_memory_gb_train"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for p in leaves:
+        p.requires_grad_(False)
+    out["passes"] = passes
+    out["expected_loss"] = random_init_loss(cfg)
+    assert passes[0]["loss"] == passes[1]["loss"], passes
+    assert math.isfinite(passes[0]["loss"]) and _rel(
+        passes[0]["loss"], out["expected_loss"]) <= TRAIN_LOSS0_RTOL, passes
+    assert all(p["grads_finite"] and p["layer_grads_nonzero"]
+               for p in passes), passes
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    head = {k: (v[..., :seq - 1] if k == "positions" else v[:, :seq - 1])
+            for k, v in tb.items()}
+    with torch.no_grad():
+        full, _ = model.prefill(params, tb, cfg)
+        _, cache = model.prefill(params, head, cfg)
+        grown = model.init_cache(cfg, batch, seq, device=dev)
+        for j, slot in cache["stack"].items():
+            for k, v in slot.items():
+                grown["stack"][j][k][:, :, :seq - 1] = v
+        del cache
+        decode_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits, _ = model.decode_step(params, grown,
+                                          tb["tokens"][:, seq - 1:],
+                                          seq - 1, cfg)
+            torch.cuda.synchronize(dev)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    out["decode_ms"] = decode_ms
+    out["peak_memory_gb_serve"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    V = cfg.vocab
+    delta = float((logits - full)[:, :V].abs().max())
+    decided = agree = 0
+    for a, row in zip(logits, full):
+        top2 = torch.topk(row[:V], 2).values
+        same = int(a[:V].argmax()) == int(row[:V].argmax())
+        if float(top2[0] - top2[1]) > 2 * delta:
+            decided += 1
+            assert same, (delta, top2.tolist())
+        agree += same
+    out["decode_vs_prefill"] = {"max_abs_logit_diff": delta,
+                                "argmax_decided_by_margin": decided,
+                                "argmax_equal": agree, "rows": batch}
+    out["seconds"] = time.perf_counter() - t_phase
+    del params, grown, full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase(dev, engine_cuda, names=EXAMPLES, argv=()) -> dict:
+    """Each ``repro_torch.examples`` script through its ``main`` on the card
+    at its own spec (plus ``argv``), stdout captured, the lockVM kernel's
+    launch count set to 0 just before each: the scripts' own checks hold
+    (quickstart's counter, the FIFO admission order, train_moe's learning,
+    elastic_restart's drift under 5e-3, every host lock acquiring 2,000
+    times)."""
+    import importlib
+
+    out = {"phase": "examples", "scripts": {}}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    extra = {"serve_continuous_batching": ["--record",
+                                           os.path.join(tmp, "trace.npz")],
+             "train_moe": ["--ckpt-dir", os.path.join(tmp, "train_moe")]}
+    try:
+        for name in names:
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            engine_cuda.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = mod.main([*extra.get(name, []), *argv,
+                                "--device", str(dev)])
+            torch.cuda.synchronize(dev)
+            line = {"seconds": time.perf_counter() - t0,
+                    "lockvm_launches": engine_cuda.launches,
+                    "stdout_tail": buf.getvalue().splitlines()[-6:]}
+            if name == "quickstart":
+                assert res["counter"] == 4000
+                line["mutexbench"] = {str(t): r for t, r in
+                                      res["mutexbench"].items()}
+                line["losses"] = res["losses"]
+            elif name == "lock_playground":
+                assert set(res["host_threads"].values()) == {2000}, res
+                line["cells"] = len(res["sweep"])
+                line["throughput_T64"] = {lk: res["sweep"][lk, 64][0]
+                                          for lk in ("ticket", "twa", "mcs")}
+                line["sem"] = {str(k): v for k, v in res["sem"].items()}
+                line["collisions"] = {str(k): v for k, v in
+                                      res["collisions"].items()}
+            elif name == "elastic_restart":
+                assert res["verdict"] == "OK", res["drift"]
+                line["drift"] = res["drift"]
+            elif name == "serve_continuous_batching":
+                line["requests"] = len(res["results"])
+                line["trace_requests"] = len(res["trace"])
+                line["gate"] = res["gate"]
+            else:
+                line.update({k: res[k] for k in ("first10", "last10",
+                                                 "params")})
+                line["steps"] = len(res["losses"])
+            if name in ("quickstart", "lock_playground"):
+                assert engine_cuda.launches > 0, name
+            out["scripts"][name] = line
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1761,7 +2129,8 @@ def main() -> int:
     from repro_torch.sim import engine, engine_cuda
     from repro_torch.sim.corpus import load_scenario, scenario_sweep_args
     from repro_torch.sim.workloads import RESULTS_STORE_ENV
-    from repro_torch.launch.train import main as train_main
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train as launch_train
     from repro_torch.train import train_step
 
     # the sweeps here write to no results store but the phase's own, and
@@ -2016,12 +2385,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. train granite-moe-1b-a400m at full width
-    train = train_phase(dev, train_main, ckpt, tree, ticket_kernel,
+    train = train_phase(dev, launch_train, ckpt, tree, ticket_kernel,
                         plan_kernel)
     emit(train)
 
     # ---- 12. reduced models train alike on the card and on the CPU
     emit(train_devices_phase(dev, model, train_step, optim, tree))
+
+    # ---- 13. train hubert-xlarge at full width and depth
+    emit(train_hubert_phase(dev, launch_train, get_config(AUDIO_ARCH)))
+
+    # ---- 14. qwen2-vl-72b at full width, 4 layers: loss, backward, decode
+    emit(frontends_phase(dev, model, synthetic_batch, dataclasses.replace(
+        get_config(VLM_ARCH), n_layers=VLM_LAYERS)))
+
+    # ---- 15. the example scripts at their own specs
+    examples = examples_phase(dev, engine_cuda)
+    emit(examples)
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
     dec = ticket["timed"]["decode"]
@@ -2046,7 +2426,9 @@ def main() -> int:
         "figure_launches": {ln["suite"]: ln["launches"] for ln in figures},
         "admission_launches": host_locks["suites"]["admission"]["launches"],
         "figure_kernel_seconds": {ln["suite"]: ln["kernel_seconds"]
-                                  for ln in figures}}, {
+                                  for ln in figures},
+        "example_launches": {name: ln["lockvm_launches"] for name, ln in
+                             examples["scripts"].items()}}, {
         "name": "ticket_dispatch_run", "route": "cuda",
         "source": "src/repro_torch/csrc/ticket_dispatch.cu",
         "replaces": "src/repro/kernels/ticket_dispatch/kernel.py:72",
@@ -2054,7 +2436,8 @@ def main() -> int:
         "launches_on": "serve, dispatch='ticket'",
         "train_launches": train["use_pallas"]["ticket_launches"],
         "train_launches_on": f"train, use_pallas=True, "
-                             f"{TRAIN_PALLAS_STEPS} steps",
+                             f"{TRAIN_PALLAS_STEPS} steps, remat "
+                             f"{train['remat']!r} (forward and recompute)",
         "max_abs_err": max(c["max_abs_err"] for c in ticket["sets"]),
         "ms": dec["ms"], "device_ms": dec["device_ms"],
         "launch_floor_ms": dec["launch_floor_ms"], "plain_ms": dec["plain_ms"],

@@ -1,6 +1,6 @@
 """Data pipeline: deterministic synthetic LM streams + prefetching loader."""
 
-from .synthetic import SyntheticLM, synthetic_batch
+from .synthetic import SyntheticLM, mrope_positions, synthetic_batch
 from .pipeline import Prefetcher
 
-__all__ = ["SyntheticLM", "synthetic_batch", "Prefetcher"]
+__all__ = ["SyntheticLM", "mrope_positions", "synthetic_batch", "Prefetcher"]

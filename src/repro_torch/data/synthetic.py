@@ -58,6 +58,29 @@ def synthetic_batch(cfg: ArchConfig, *, step: int, batch: int, seq: int,
     return out
 
 
+def mrope_positions(seed: int, batch: int, seq: int, n_vis: int) -> np.ndarray:
+    """Three distinct M-RoPE position streams (3, B, S), int32, as Qwen2-VL
+    lays out one image ahead of the text: over the first ``n_vis``
+    positions the temporal stream is constant and height and width walk an
+    h × w grid of patches (h·w = n_vis, h the largest divisor up to
+    sqrt(n_vis)); the text after continues all three streams together from
+    one past the largest.  Each row starts at an offset drawn from
+    ``seed``.  (:func:`synthetic_batch` gives three equal streams, as the
+    reference's does, with which M-RoPE is plain RoPE.)"""
+    h = max(d for d in range(1, int(np.sqrt(n_vis)) + 1) if n_vis % d == 0)
+    w = n_vis // h
+    rng = np.random.default_rng(seed)
+    out = np.empty((3, batch, seq), np.int32)
+    for b in range(batch):
+        s0 = int(rng.integers(0, 8))
+        out[0, b, :n_vis] = s0
+        out[1, b, :n_vis] = s0 + np.repeat(np.arange(h), w)
+        out[2, b, :n_vis] = s0 + np.tile(np.arange(w), h)
+        nxt = int(out[:, b, :n_vis].max()) + 1 if n_vis else s0
+        out[:, b, n_vis:] = nxt + np.arange(seq - n_vis)
+    return out
+
+
 class SyntheticLM:
     """Stateless batch source bound to (cfg, batch, seq, seed, shard)."""
 

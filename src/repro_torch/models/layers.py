@@ -1,11 +1,11 @@
-"""Layer kinds of the attention, MoE, Mamba and Griffin decoders: norms,
-RoPE, GQA attention (full, chunked, sliding-window, one-token decode
-against a KV cache or its ring), gated MLP, MoE with ticket dispatch, the
-Mamba-1 mixer and the RG-LRU mixer, each with its one-token decode.
+"""Layer kinds of the attention, MoE, Mamba and Griffin models: norms,
+RoPE and Qwen2-VL's M-RoPE, GQA attention (full or bidirectional,
+chunked, sliding-window, one-token decode against a KV cache or its ring),
+gated MLP, MoE with ticket dispatch, the Mamba-1 mixer and the RG-LRU
+mixer, each with its one-token decode.
 
-A port of the reference's ``repro/models/layers.py`` for the layer kinds
-the serve paths of granite-moe-1b-a400m, deepseek-7b, falcon-mamba-7b,
-recurrentgemma-9b, gemma3-1b and gemma2-27b reach.  The functions keep its
+A port of the reference's ``repro/models/layers.py``, for every config's
+layer kinds.  The functions keep its
 layouts: x (B, S, D); ``wq`` (D, H, hd), ``wk``/``wv`` (D, KV, hd), ``wo``
 (H, hd, D); experts' ``wi``/``wg`` (E, D, ff) and ``wo`` (E, ff, D); KV
 caches (B, S, KV, hd); the Mamba state (B, d_inner, N) and conv tail
@@ -53,14 +53,27 @@ def _rope_angles(positions, dim: int, theta: float):
 
 
 def apply_rope(x, positions, theta: float = 10000.0, sections: tuple = ()):
-    """Rotary embedding; x (B, S, H, hd), positions (B, S).  M-RoPE
-    (``sections``, Qwen2-VL) is not ported yet."""
-    if sections:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl's vision frontend) is not ported yet: "
-            "ROADMAP, model stack")
+    """Rotary embedding; x (B, S, H, hd).  positions (B, S) or, for M-RoPE,
+    (3, B, S) with ``sections`` giving each stream's share of the hd/2
+    rotary columns (Qwen2-VL: temporal, height, width).  Each stream's
+    angles are computed over the full head dim and stream s keeps columns
+    ``sum(sections[:s]) : sum(sections[:s + 1])``, sliced as the reference
+    slices: sections that overrun hd/2 are clipped, so a later stream may
+    keep none (the reduced configs' (4, 6, 6) at hd 16)."""
     hd = x.shape[-1]
-    cos, sin = _rope_angles(positions, hd, theta)
+    if sections:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        cos_parts, sin_parts = [], []
+        for s in range(len(sections)):
+            lo, hi = sum(sections[:s]), sum(sections[:s + 1])
+            c, si = _rope_angles(positions[s], hd, theta)
+            cos_parts.append(c[..., lo:hi])
+            sin_parts.append(si[..., lo:hi])
+        cos, sin = torch.cat(cos_parts, -1), torch.cat(sin_parts, -1)
+    else:
+        cos, sin = _rope_angles(positions, hd, theta)
     cos = cos[:, :, None, :]  # (B, S, 1, hd/2)
     sin = sin[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -235,6 +248,8 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     pos_b = torch.as_tensor(pos, device=x.device)
     pos_b = (pos_b.expand(B) if pos_b.dim() == 0 else pos_b).long()
     positions = pos_b[:, None]
+    if cfg.mrope_sections:      # one position in all three M-RoPE streams
+        positions = positions.expand(3, B, 1)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])

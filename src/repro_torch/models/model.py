@@ -1,10 +1,15 @@
 """Model builder: parameter init, forward, prefill and one-token decode with
 a KV, ring or recurrent-state cache, for the attention decoders (dense and
-MoE, full and sliding-window), the Mamba-1 stack and the Griffin hybrid.
+MoE, full and sliding-window), the Mamba-1 stack, the Griffin hybrid, the
+bidirectional audio encoder (hubert: precomputed frames in) and the
+vision-language decoder (qwen2-vl: precomputed patch embeddings and three
+M-RoPE position streams in).
 
 A port of the reference's ``repro/models/model.py`` for layer kinds
-``global``, ``local``, ``mamba`` and ``rglru``, with its training loss
-(:func:`loss_fn`).  Parameters keep the
+``global``, ``local``, ``mamba`` and ``rglru`` and its stub frontends
+(:func:`_embed_inputs`), with its training loss (:func:`loss_fn`) and its
+remat policy (``cfg.remat``: each period of the stack recomputed in the
+backward pass, :func:`_remat_context`).  Parameters keep the
 reference's tree so that the two packages can compute with the same
 weights (:func:`params_from_numpy`):
 ``{"embed", "final_norm", "stack": {"slot<j>": {name: (P, ...)}},
@@ -16,15 +21,17 @@ global attention layers, a ring of (P, B, min(S_ctx, window), KV, hd)
 ``k``/``v`` for sliding-window (``local``) layers, (P, B, d_inner, N)
 ``ssm`` and (P, B, kw-1, d_inner) ``conv`` leaves for Mamba layers, and
 (P, B, w) ``h`` and (P, B, kw-1, w) ``conv`` leaves for RG-LRU layers.
-
-The vision and audio frontends raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -44,10 +51,6 @@ def _require_ported(kind: str, cfg: ArchConfig) -> None:
 def _check_ported(cfg: ArchConfig) -> None:
     for kind in dict.fromkeys(cfg.layer_pattern):
         _require_ported(kind, cfg)
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend ({cfg.name}) is not ported yet: "
-            "ROADMAP, model stack (vision and audio frontends)")
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -217,18 +220,26 @@ def params_from_numpy(cfg: ArchConfig, tree, *, device=None,
     return _build_tree(_param_layout(cfg), conv)
 
 
-def _layers(params, cfg: ArchConfig):
-    """(kind, layer params, where) in depth order: period i's slots, then
-    the tail; ``where`` is ("stack", slot, i) or ("tail", i).  Each stacked
+def _periods(params, cfg: ArchConfig) -> list:
+    """Each period's layer params, in depth order: a list over the P
+    periods of a list over the slots of the layer pattern.  Each stacked
     leaf is unbound once into its P views, so that a backward pass stacks
     the P layers' gradients in one tensor (indexing each view apart would
     give every layer a zero-filled gradient of the whole stack)."""
-    stack = {j: {k: v.unbind(0) for k, v in slot.items()}
-             for j, slot in params["stack"].items()} if cfg.n_periods else {}
-    for i in range(cfg.n_periods):
-        for j, kind in enumerate(cfg.layer_pattern):
-            yield kind, {k: v[i] for k, v in stack[f"slot{j}"].items()}, \
-                ("stack", f"slot{j}", i)
+    if not cfg.n_periods:
+        return []
+    stack = [{k: v.unbind(0) for k, v in params["stack"][f"slot{j}"].items()}
+             for j in range(cfg.period)]
+    return [[{k: v[i] for k, v in slot.items()} for slot in stack]
+            for i in range(cfg.n_periods)]
+
+
+def _layers(params, cfg: ArchConfig):
+    """(kind, layer params, where) in depth order: period i's slots, then
+    the tail; ``where`` is ("stack", slot, i) or ("tail", i)."""
+    for i, period in enumerate(_periods(params, cfg)):
+        for j, (kind, p) in enumerate(zip(cfg.layer_pattern, period)):
+            yield kind, p, ("stack", f"slot{j}", i)
     for i, kind in enumerate(cfg.tail_kinds):
         yield kind, params["tail"][i], ("tail", i)
 
@@ -308,6 +319,73 @@ def _embed(params, tokens, cfg: ArchConfig):
     return params["embed"][tokens] * scale.item()
 
 
+def _embed_inputs(params, batch: dict, cfg: ArchConfig):
+    """The stack's input and its RoPE positions, as the reference's
+    ``_embed_inputs``: the frontends are stubs whose embeddings arrive
+    precomputed.  ``audio_frames``: ``batch["frames"]`` (B, S, D) cast to
+    the compute dtype, unscaled, at positions ``arange(S)``;
+    ``vision_patches``: the token embedding × sqrt(d_model), with
+    ``batch["vision_embeds"]`` (cast to its dtype) where
+    ``batch["vision_mask"]`` holds, at the three M-RoPE streams of
+    ``batch["positions"]`` (3, B, S); otherwise the token embedding at
+    positions ``arange(S)``."""
+    if cfg.frontend == "audio_frames":
+        x = batch["frames"].to(torch_dtype(cfg))
+        B, S = x.shape[:2]
+        return x, torch.arange(S, device=x.device)[None].expand(B, S)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    if cfg.frontend == "vision_patches":
+        x = torch.where(batch["vision_mask"][..., None],
+                        batch["vision_embeds"].to(x.dtype), x)
+        return x, batch["positions"]
+    return x, torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of the products with no batch dimension and recompute the rest.
+    ``torch.einsum`` lowers a product with no batch dimension (the
+    projections, ``"bsd,dhk->bshk"``) to ``mm``/``addmm`` or to a ``bmm`` of
+    batch extent 1, and one with batch dimensions (attention's
+    ``"bqhd,bkhd->bhqk"``, the experts' ``"gecd,edf->gecf"``) to a ``bmm``
+    over them."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: ArchConfig):
+    """The ``context_fn`` of :func:`torch.utils.checkpoint.checkpoint` for
+    ``cfg.remat`` (the reference's ``_remat_policy``), or None for
+    ``"none"``: ``"full"`` saves nothing of a period, ``"dots"`` saves what
+    :func:`_dots_policy` keeps."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return noop_context_fn
+    if cfg.remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    raise ValueError(f"unknown remat {cfg.remat!r}; options: none, dots, "
+                     "full")
+
+
+def _period(x, period, cfg: ArchConfig, positions, dispatch: str, scan: str):
+    """One period of the stack (the layers of the layer pattern); returns
+    (x, the period's aux loss, its cache entries by slot)."""
+    aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for kind, p in zip(cfg.layer_pattern, period):
+        x, aux, cache = apply_layer(kind, p, x, cfg, positions, dispatch,
+                                    scan)
+        aux_p = aux_p + aux
+        caches.append(cache)
+    return x, aux_p, caches
+
+
 def _logits(params, x, cfg: ArchConfig):
     x = L.rms_norm(params["final_norm"], x, cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -318,28 +396,44 @@ def _logits(params, x, cfg: ArchConfig):
 
 def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
             scan: str = "auto", collect_cache: bool = False):
-    """Full forward pass over ``batch["tokens"]`` (B, S); returns
-    (logits (B, S, V) float32, aux_loss, cache or None).  ``dispatch`` is
-    the MoE routing-plan mode (:func:`layers.moe`), ``scan`` the mode of
-    the selective scan (:func:`layers.mamba_block`) and of the RG-LRU scan
-    (:func:`layers.rglru_block`)."""
+    """Full forward pass over ``batch`` (``tokens`` (B, S), or the frontend's
+    inputs, :func:`_embed_inputs`); returns (logits (B, S, V) float32,
+    aux_loss, cache or None).  ``dispatch`` is the MoE routing-plan mode
+    (:func:`layers.moe`), ``scan`` the mode of the selective scan
+    (:func:`layers.mamba_block`) and of the RG-LRU scan
+    (:func:`layers.rglru_block`).
+
+    Where autograd records the pass (grad mode on and a period's input or
+    weights requiring grad), each period runs under
+    :func:`torch.utils.checkpoint.checkpoint` with ``cfg.remat``'s policy
+    (:func:`_remat_context`) and is recomputed in the backward pass, as
+    the reference's ``jax.checkpoint`` around its period body; the tail
+    layers are not.  The values are the same either way."""
     _check_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x, positions = _embed_inputs(params, batch, cfg)
+    context_fn = _remat_context(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     stack_caches = {f"slot{j}": [] for j in range(cfg.period)} \
         if cfg.n_periods else {}
-    tail_caches = []
-    for kind, p, where in _layers(params, cfg):
-        x, aux, cache = apply_layer(kind, p, x, cfg, positions, dispatch,
-                                    scan)
-        aux_total = aux_total + aux
-        if where[0] == "stack":
-            stack_caches[where[1]].append(cache)
+    run = functools.partial(_period, cfg=cfg, positions=positions,
+                            dispatch=dispatch, scan=scan)
+    for period in _periods(params, cfg):
+        recorded = torch.is_grad_enabled() and (x.requires_grad or any(
+            v.requires_grad for p in period for v in p.values()))
+        if context_fn is not None and recorded:
+            x, aux, caches = checkpoint(run, x, period, use_reentrant=False,
+                                        context_fn=context_fn)
         else:
-            tail_caches.append(cache)
+            x, aux, caches = run(x, period)
+        aux_total = aux_total + aux
+        for j, cache in enumerate(caches):
+            stack_caches[f"slot{j}"].append(cache)
+    tail_caches = []
+    for i, kind in enumerate(cfg.tail_kinds):
+        x, aux, cache = apply_layer(kind, params["tail"][i], x, cfg,
+                                    positions, dispatch, scan)
+        aux_total = aux_total + aux
+        tail_caches.append(cache)
     logits = _logits(params, x, cfg)
     cache = None
     if collect_cache:

@@ -263,15 +263,6 @@ def test_init_params_shapes_and_device_rules(monkeypatch):
         M.init_cache(cfg, 2, 16)
 
 
-@pytest.mark.parametrize("name", ["qwen2-vl-72b", "hubert-xlarge"])
-def test_unported_layer_kinds_name_their_roadmap_item(name):
-    """Every layer kind is ported; the vision and audio frontends are
-    not, and raise naming their ROADMAP item."""
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator(), device=CPU)
-
-
 def test_kernel_bounds_of_the_mamba_and_rglru_scans(capsys):
     """``repro_torch.bench.kernel_bounds`` counts each input and output
     once at the serve traffic's prompts (256 tokens, and the Griffin

@@ -245,6 +245,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.train.train_step
         import repro_torch.ckpt, repro_torch.ckpt.checkpoint
         import repro_torch.launch.train
+        import repro_torch.examples, repro_torch.examples.quickstart
+        import repro_torch.examples.lock_playground
+        import repro_torch.examples.elastic_restart
+        import repro_torch.examples.serve_continuous_batching
+        import repro_torch.examples.train_moe
         import repro_torch.sim.results, repro_torch.sim.results.__main__
         import repro_torch.sim.check, repro_torch.sim.check.__main__
         import repro_torch.sim.check._fastcase
@@ -260,7 +265,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         for pkg in (repro_torch.sim.check, repro_torch.sim.results,
                     repro_torch.bench, repro_torch.core, repro_torch.runtime,
                     repro_torch.data, repro_torch.optim, repro_torch.train,
-                    repro_torch.ckpt, repro_torch.launch):
+                    repro_torch.ckpt, repro_torch.launch,
+                    repro_torch.examples):
             names = {m.name for m in pkgutil.iter_modules(pkg.__path__)}
             missing = {n for n in names
                        if f"{pkg.__name__}.{n}" not in sys.modules}
