@@ -180,6 +180,14 @@ scripts — through the entry points a user calls, and checks them:
    elastic_restart, serve_continuous_batching and train_moe at their own
    specs on the card (the lockVM sweeps through the kernel, launches
    counted), each script's own checks holding.
+16. launch: the dry run (``repro_torch.launch.dryrun``) of
+   granite-moe-1b-a400m × train_4k × pod16x16 at full width, on fake
+   tensors over a fake process group on the host's CPU: GiB a device, the
+   four roofline terms, the dominant one, wall seconds.  Then the
+   one-device roofline (1×1 mesh, no card time) of phase 11's step (batch
+   8 × seq 512, with the config's remat and with ``"none"``): its bound
+   may not exceed the measured ms a step, and ``train_mfu`` = model FLOPs
+   / (989e12 × the measured seconds).
 
 Each phase prints one JSON line.  Before the last line come the kernel
 table (a JSON object with key ``kernels``) and the ``nvidia-smi`` name and
@@ -2077,6 +2085,77 @@ def examples_phase(dev, engine_cuda, names=EXAMPLES, argv=()) -> dict:
     return out
 
 
+def launch_phase(train: dict, smi: str) -> dict:
+    """The launch tools on the host's CPU (fake tensors, no card time):
+    the dry run of granite-moe-1b-a400m × train_4k × pod16x16 at full width
+    (``repro_torch.launch.dryrun.run_cell`` over a fake process group of
+    256 ranks) and its Hopper roofline; then the one-device roofline (1×1
+    mesh) of the step phase 11 timed, with the config's remat and with
+    ``"none"``, held against the measured ms a step: the bound may not
+    exceed it, and ``train_mfu`` is the model's FLOPs over the card's bf16
+    peak times the measured step."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(SERVE_ARCH)
+    out = {"phase": "launch", "arch": SERVE_ARCH, "card": smi}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        t0 = time.perf_counter()
+        res = dryrun.run_cell(SERVE_ARCH, "train_4k", multi_pod=False,
+                              out_dir=tmp)
+        wall = time.perf_counter() - t0
+        assert res["status"] == "ok", res
+        r = roofline.roofline_cell(os.path.join(tmp, res["cell"] + ".json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["dryrun"] = {
+        "cell": res["cell"], "gib_per_device": r["memory_gib"],
+        **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                             "latency_s", "dominant", "step_time_bound_s",
+                             "roofline_fraction")},
+        "memory": res["memory"], "wall_seconds": wall,
+        # held to the reference on a reduced cell by the CPU tests: argument
+        # bytes and FLOPs; the rest is eager DTensor's layout, unverified
+        "unverified": ["memory_s", "collective_s", "latency_s", "dominant",
+                       "step_time_bound_s", "roofline_fraction",
+                       "temp_size_in_bytes"]}
+    assert 0 < r["memory_gib"] and r["dominant"] in (
+        "compute", "memory", "collective", "latency"), r
+    cell = ShapeCell("train_b8_s512", "train", TRAIN_SEQ, TRAIN_BATCH)
+    measured = {cfg.remat: train["plain"]["median_step_ms_after_first"],
+                "none": train["remat_none"]["median_step_ms_after_first"]}
+    out["one_device"] = {}
+    for remat, step_ms in measured.items():
+        run_cfg = dataclasses.replace(cfg, remat=remat)
+        t0 = time.perf_counter()
+        with make_local_mesh(1, 1) as mesh:
+            memory, rows = dryrun.execute_cell(run_cfg, cell, mesh,
+                                               optimizer=AdamW())
+        rf = roofline.roofline({
+            "cell": f"{SERVE_ARCH}__{cell.name}__1x1", "arch": SERVE_ARCH,
+            "shape": cell.name, "kind": "train", "seq_len": cell.seq_len,
+            "global_batch": cell.global_batch, "mesh": [1, 1],
+            "mesh_axes": ["data", "model"], "params": run_cfg.param_count(),
+            "active_params": run_cfg.active_param_count(),
+            "memory": memory}, rows)
+        bound_ms = rf["step_time_bound_s"] * 1e3
+        line = {k: rf[k] for k in ("compute_s", "memory_s", "latency_s",
+                                   "dominant", "op_flops", "op_bytes",
+                                   "launches", "model_flops")}
+        line.update(bound_ms=bound_ms, measured_ms=step_ms,
+                    bound_share=bound_ms / step_ms,
+                    train_mfu=rf["model_flops"] / (
+                        roofline.PEAK_FLOPS * step_ms / 1e3),
+                    gib=rf["memory_gib"],
+                    seconds=time.perf_counter() - t0)
+        out["one_device"][remat] = line
+        assert bound_ms <= step_ms, (remat, bound_ms, step_ms)
+    return out
+
+
 def check_claims(by: dict) -> None:
     """The fig3 inequalities of tests/test_sim_paper_claims.py."""
     for T in (1, 2, 4):
@@ -2402,6 +2481,9 @@ def main() -> int:
     # ---- 15. the example scripts at their own specs
     examples = examples_phase(dev, engine_cuda)
     emit(examples)
+
+    # ---- 16. the launch tools: the dry run and the Hopper roofline
+    emit(launch_phase(train, smi))
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
     dec = ticket["timed"]["decode"]

@@ -1,11 +1,12 @@
 """Architecture registry: ``get_config(name)`` / ``--arch <id>``.
 
-Copies of the reference's ``repro.configs`` data files and schema (the
-dry-run shape cells stay with the reference)."""
+Copies of the reference's ``repro.configs`` data files, schema and
+dry-run shape cells."""
 
 from __future__ import annotations
 
 from .base import ArchConfig
+from .shapes import SHAPES, ShapeCell, applicable, cells_for
 
 from .gemma3_1b import CONFIG as _gemma3_1b
 from .gemma2_27b import CONFIG as _gemma2_27b
@@ -38,4 +39,5 @@ def list_archs() -> list[str]:
     return sorted(ARCHS)
 
 
-__all__ = ["ArchConfig", "ARCHS", "get_config", "list_archs"]
+__all__ = ["ArchConfig", "ARCHS", "get_config", "list_archs",
+           "SHAPES", "ShapeCell", "applicable", "cells_for"]

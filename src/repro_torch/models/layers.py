@@ -15,8 +15,9 @@ and are cast back where the reference casts.  Every product is
 ``torch.einsum``/``matmul``, as the reference leaves them to XLA; the
 kernels are the ticket dispatch inside :func:`moe`, the selective scan
 inside :func:`mamba_block` and the RG-LRU scan inside :func:`rglru_block`.
-The reference's sharding constraints have no counterpart on one card and
-are dropped.
+The reference's activation sharding constraints stand at its places
+(:func:`shard_utils.constrain`): identities on one device, redistributions
+of ``DTensor`` activations under the dry run's mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
 from ..kernels.ticket_dispatch.ref import renormalize, top_k_stable
+from .shard_utils import constrain, mesh_axis_size
 
 NEG_INF = -1e30   # the reference's mask value
 
@@ -259,8 +261,20 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     slot = pos_b % S_ctx if window else pos_b.clamp(0, S_ctx - 1)
     cache_k[lanes, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[lanes, slot] = v_new[:, 0].to(cache_v.dtype)
+    # under a mesh: the cache's KV heads on 'model' where they divide it,
+    # else its context dim, with q's heads replicated
+    model_size = mesh_axis_size("model")
+    kv_sharded = model_size > 1 and KV % model_size == 0
+    if kv_sharded:
+        cache_k = constrain(cache_k, "batch", None, "model", None)
+        cache_v = constrain(cache_v, "batch", None, "model", None)
+    else:
+        cache_k = constrain(cache_k, "batch", "model", None, None)
+        cache_v = constrain(cache_v, "batch", "model", None, None)
 
     qg = q.reshape(B, 1, KV, M, hd)
+    if not kv_sharded:
+        qg = constrain(qg, "batch", None, None, None, None)
     scale = hd ** -0.5
     scores = torch.einsum("bqgmd,bsgd->bgmqs", qg,
                           cache_k.to(x.dtype)).float() * scale
@@ -335,7 +349,7 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
     E, K = cfg.n_experts, cfg.top_k
     G = groups if groups is not None else (B if S > 1 else 1)
     N = (B * S) // G
-    flat = x.reshape(G, N, D)
+    flat = constrain(x.reshape(G, N, D), "batch", None, None)
     capacity = moe_capacity(cfg, N)
     plan = route_plan(router_softmax(p, flat), E, K, capacity, x.dtype,
                       mode=dispatch)
@@ -346,14 +360,17 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
                            .expand(G, E * capacity, D))
     buffers = torch.where(plan["valid"][..., None], buffers,
                           torch.zeros((), dtype=x.dtype, device=x.device))
+    buffers = constrain(buffers, "batch", None, None)
     buffers = buffers.reshape(G, E, capacity, D)
 
     h = _act(cfg.act)(torch.einsum("gecd,edf->gecf", buffers, p["wi"]))
     h = h * torch.einsum("gecd,edf->gecf", buffers, p["wg"])
+    h = constrain(h, "batch", None, None, "model")
     out = torch.einsum("gecf,efd->gecd", h, p["wo"])            # (G,E,cap,D)
 
     # combine: gather each kept pair's expert output, weight by gate
-    out_flat = out.reshape(G, E * capacity, D)
+    out_flat = constrain(out.reshape(G, E * capacity, D), "batch", None,
+                         None)
     gathered = torch.gather(out_flat, 1, plan["safe_idx"][..., None]
                             .expand(G, N * K, D))
     gathered = gathered.reshape(G, N, K, D) * plan["gates"][..., None]

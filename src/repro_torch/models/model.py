@@ -37,6 +37,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from . import layers as L
+from .shard_utils import constrain
 
 KINDS = ("global", "local", "mamba", "rglru")
 # parameter inits kept in float32 whatever the config's dtype
@@ -108,6 +109,67 @@ def _rglru_layer_shapes(cfg: ArchConfig) -> dict:
             "wg": ((d, ff), "normal"), "wo_mlp": ((ff, d), "normal")}
 
 
+def _attn_layer_specs(cfg: ArchConfig) -> dict:
+    """Logical axes of one attention layer's parameters (the reference's
+    ``_attn_layer_specs``)."""
+    p = {"ln1": ("embed",), "ln2": ("embed",),
+         "wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.n_experts:
+        return p | {"router": ("embed", "experts"),
+                    "wi": ("experts", "embed", "ffn"),
+                    "wg": ("experts", "embed", "ffn"),
+                    "wo_mlp": ("experts", "ffn", "embed")}
+    return p | {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"),
+                "wo_mlp": ("ffn", "embed")}
+
+
+def _mamba_layer_specs(cfg: ArchConfig) -> dict:
+    return {"ln1": ("embed",), "in_proj": ("embed", "inner"),
+            "conv_w": ("inner", None), "conv_b": ("inner",),
+            "A_log": ("inner", None), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "D_skip": ("inner",), "out_proj": ("inner", "embed")}
+
+
+def _rglru_layer_specs(cfg: ArchConfig) -> dict:
+    return {"ln1": ("embed",), "ln2": ("embed",),
+            "w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+            "conv_w": ("lru", None), "conv_b": ("lru",),
+            "w_rg": ("lru", None), "lam": ("lru",),
+            "w_out": ("lru", "embed"),
+            "wi": ("embed", "ffn"), "wg": ("embed", "ffn"),
+            "wo_mlp": ("ffn", "embed")}
+
+
+def _layer_specs(kind: str, cfg: ArchConfig) -> dict:
+    _require_ported(kind, cfg)
+    if kind == "mamba":
+        return _mamba_layer_specs(cfg)
+    if kind == "rglru":
+        return _rglru_layer_specs(cfg)
+    return _attn_layer_specs(cfg)
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Logical-axis names, parallel to :func:`param_shapes` (stacked leaves
+    lead with ``"layers"``), as the reference's ``param_specs``: the
+    sharding rules (:mod:`repro_torch.train.sharding`) map them to mesh
+    axes."""
+    _check_ported(cfg)
+    specs = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+             "stack": ({f"slot{j}": {k: ("layers",) + axes for k, axes
+                                     in _layer_specs(kind, cfg).items()}
+                        for j, kind in enumerate(cfg.layer_pattern)}
+                       if cfg.n_periods else {}),
+             "tail": [_layer_specs(kind, cfg) for kind in cfg.tail_kinds]}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    return specs
+
+
 def _layer_shapes(kind: str, cfg: ArchConfig) -> dict:
     _require_ported(kind, cfg)
     if kind == "mamba":
@@ -156,6 +218,14 @@ def _build_tree(layout: dict, fn) -> dict:
 def param_shapes(cfg: ArchConfig) -> dict:
     """The parameter tree's shapes (stacked leaves lead with P)."""
     return _build_tree(_param_layout(cfg), lambda path, shape, init: shape)
+
+
+def param_dtypes(cfg: ArchConfig) -> dict:
+    """The parameter tree's dtypes: the config's, float32 for ``A_log``
+    and ``lam``."""
+    dtype = torch_dtype(cfg)
+    return _build_tree(_param_layout(cfg), lambda path, shape, init:
+                       torch.float32 if init in _FLOAT32_INITS else dtype)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
@@ -383,6 +453,7 @@ def _period(x, period, cfg: ArchConfig, positions, dispatch: str, scan: str):
                                     scan)
         aux_p = aux_p + aux
         caches.append(cache)
+    x = constrain(x, "batch", "seq", None)
     return x, aux_p, caches
 
 
@@ -411,6 +482,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
     layers are not.  The values are the same either way."""
     _check_ported(cfg)
     x, positions = _embed_inputs(params, batch, cfg)
+    x = constrain(x, "batch", "seq", None)
     context_fn = _remat_context(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     stack_caches = {f"slot{j}": [] for j in range(cfg.period)} \
@@ -434,7 +506,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
                                     positions, dispatch, scan)
         aux_total = aux_total + aux
         tail_caches.append(cache)
-    logits = _logits(params, x, cfg)
+    logits = constrain(_logits(params, x, cfg), "batch", None, "model")
     cache = None
     if collect_cache:
         cache = {"stack": {j: {k: torch.stack([c[k] for c in cs])

@@ -4,11 +4,12 @@ through the model's plain path, the AdamW update.
 A port of the reference's ``repro/train/train_step.py``.  The reference
 scans the microbatches under ``jax.value_and_grad``; here each microbatch's
 loss goes through ``torch.autograd.grad`` in a Python loop, the gradients
-summed in ``accum_dtype``.  Parameters stay plain tensors: each step takes
-grad-requiring views of them (no copy) for its backward passes.  The
-reference's sharding constraints have no counterpart on one card:
-``constrain_grads`` is a no-op without a mesh there and here (ROADMAP, the
-launch item's ``train/sharding.py``).
+summed in ``accum_dtype``.  Parameters stay plain tensors (or, in the dry
+run, ``DTensor`` objects): each step takes grad-requiring views of them (no
+copy) for its backward passes.  ``constrain_grads`` pins each gradient to
+its parameter's placements under an ambient mesh
+(:func:`_constrain_like_params`, :mod:`repro_torch.models.shard_utils`);
+without one it is a no-op, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ class TrainOptions:
     accum_dtype: str = "float32"  # bf16 accumulator for memory-bound giants
     use_pallas: bool = False      # the ticket-dispatch kernel in every MoE
     # layer (models.model.train_modes)
-    constrain_grads: bool = False  # pin grads to the param sharding: a
-    # no-op without a mesh, as in the reference (no mesh here yet)
+    rules: dict | None = None     # logical-rule overrides (hillclimb)
+    constrain_grads: bool = False  # pin grads to the param sharding right
+    # after each microbatch's backward pass, so the data-axis partial sums
+    # become reduce-scatters (a no-op without an ambient mesh)
 
 
 def make_state(cfg: ArchConfig, optimizer: AdamW, seed: int = 0, *,
@@ -78,7 +81,10 @@ def build_train_step(cfg: ArchConfig, optimizer: AdamW,
         by_id = {id(p): torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)}
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return tree_map(lambda p: by_id[id(p)], params), metrics
+        grads = tree_map(lambda p: by_id[id(p)], params)
+        if options.constrain_grads:
+            grads = _constrain_like_params(grads, cfg, options.rules)
+        return grads, metrics
 
     def _split_mb(x, B):
         """Split the batch axis into (A, B//A); the batch axis is dim 0
@@ -95,6 +101,7 @@ def build_train_step(cfg: ArchConfig, optimizer: AdamW,
         else:
             B = batch["tokens"].shape[0]
             split = {k: _split_mb(v, B) for k, v in batch.items()}
+            split = {k: _batch_constrained(k, v) for k, v in split.items()}
             adt = _ACCUM_DTYPES[options.accum_dtype]
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
                                                    device=p.device), params)
@@ -115,3 +122,38 @@ def build_train_step(cfg: ArchConfig, optimizer: AdamW,
         return TrainState(new_params, new_opt), metrics
 
     return train_step
+
+
+def _batch_constrained(name: str, x):
+    """A stack of microbatches (A, ...) with each one's batch dim on the
+    batch axes under an ambient mesh (M-RoPE ``positions`` (A, 3, B/A, S):
+    dim 2); ``x`` itself without a mesh."""
+    from ..models.shard_utils import constrain
+    if name == "positions":
+        return constrain(x, None, None, "batch")
+    return constrain(x, None, "batch")
+
+
+def _constrain_like_params(grads, cfg: ArchConfig, rules):
+    """Pin each gradient leaf to its parameter's placements under the
+    ambient mesh (a partial sum over 'data' becomes a reduce-scatter);
+    ``grads`` itself without a mesh."""
+    from ..models.shard_utils import ambient_mesh
+    mesh = ambient_mesh()
+    if mesh is None:
+        return grads
+    from torch.distributed.tensor import DTensor
+
+    from ..models.model import param_specs
+    from .sharding import DEFAULT_RULES, map_axes, placements, spec_for_axes
+    merged = {**DEFAULT_RULES, **(rules or {})}
+
+    def con(axes, g):
+        if not isinstance(g, DTensor):
+            return g
+        want = placements(spec_for_axes(axes, tuple(g.shape), mesh, merged),
+                          mesh)
+        return g if tuple(g.placements) == want else g.redistribute(
+            mesh, want)
+
+    return map_axes(con, param_specs(cfg), grads)

@@ -193,7 +193,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     the host locks, the KV stores, the distributed locks, the complexity
     measure — configs, the ticket-dispatch, selective-scan and RG-LRU
     kernels, models, serve, the runtime, data, optimizer, train-step and
-    checkpoint modules, both launchers, the benchmarks — every module of
+    checkpoint modules, both launchers, the launch tools — the shape cells,
+    sharding rules and activation constraints, the fake-process-group
+    mesh (made once), input specs, the dry run, the roofline and the
+    hillclimb — the benchmarks — every module of
     ``repro_torch.bench``: the figures, Table 1, the host-thread and
     admission benchmarks, the serve↔lockVM loop, the fuzz smoke and the
     suite runner — the results store and its CLI, the differential
@@ -245,6 +248,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.train.train_step
         import repro_torch.ckpt, repro_torch.ckpt.checkpoint
         import repro_torch.launch.train
+        import repro_torch.configs.shapes, repro_torch.train.sharding
+        import repro_torch.models.shard_utils, repro_torch.launch.mesh
+        import repro_torch.launch.specs, repro_torch.launch.dryrun
+        import repro_torch.launch.roofline, repro_torch.launch.hillclimb
+        with repro_torch.launch.mesh.make_local_mesh(2, 2) as mesh:
+            assert mesh.mesh_dim_names == ("data", "model")
         import repro_torch.examples, repro_torch.examples.quickstart
         import repro_torch.examples.lock_playground
         import repro_torch.examples.elastic_restart
