@@ -180,10 +180,14 @@ scripts — through the entry points a user calls, and checks them:
    elastic_restart, serve_continuous_batching and train_moe at their own
    specs on the card (the lockVM sweeps through the kernel, launches
    counted), each script's own checks holding.
-16. launch: the dry run (``repro_torch.launch.dryrun``) of
-   granite-moe-1b-a400m × train_4k × pod16x16 at full width, on fake
-   tensors over a fake process group on the host's CPU: GiB a device, the
-   four roofline terms, the dominant one, wall seconds.  Then the
+16. launch: the dry run (``repro_torch.launch.dryrun``) of every reduced
+   config × applicable shape on pod16x16 and of seven decode and
+   long_500k cells at full width, depth cut (any raise fails the phase),
+   then of granite-moe-1b-a400m × train_4k × pod16x16 at full width, on fake
+   tensors over a fake process group on the host's CPU: GiB a device,
+   product FLOPs and collective bytes beside the reference dry run's
+   (constants: the card's host has no JAX), the four roofline terms, the
+   dominant one, wall seconds.  Then the
    one-device roofline (1×1 mesh, no card time) of phase 11's step (batch
    8 × seq 512, with the config's remat and with ``"none"``): its bound
    may not exceed the measured ms a step, and ``train_mfu`` = model FLOPs
@@ -2085,6 +2089,58 @@ def examples_phase(dev, engine_cuda, names=EXAMPLES, argv=()) -> dict:
     return out
 
 
+# The reference dry run of granite-moe-1b-a400m × train_4k × pod16x16 at
+# full width (repro.launch.dryrun.run_cell, then repro.launch.roofline's
+# analyzer; jax 0.9.0 on a CPU): total_per_device in GiB, hlo_flops,
+# coll_bytes.  The card's host has no JAX, so they are constants here.
+DRYRUN_REFERENCE = {"gib_per_device": 12.47, "hlo_flops": 2.382e13,
+                    "coll_bytes": 5.553e11}
+
+
+# decode and long-context cells at full width, depth cut (n_layers): the
+# one-token paths at real head counts (tests/test_torch_launch_fidelity_
+# decode.py holds their counts to the reference's dry run)
+CUT_DRYRUNS = (("granite-moe-1b-a400m", "decode_32k", 2),
+               ("gemma3-1b", "decode_32k", 2),
+               ("recurrentgemma-9b", "decode_32k", 3),
+               ("falcon-mamba-7b", "long_500k", 2),
+               ("recurrentgemma-9b", "long_500k", 3),
+               ("gemma3-1b", "long_500k", 2),
+               ("gemma2-27b", "long_500k", 2))
+
+
+def reduced_dryruns(out_dir: str) -> dict:
+    """The dry run of every config's ``reduced()`` × applicable shape on
+    pod16x16 (fake tensors, the host's CPU), then of ``CUT_DRYRUNS``: GiB a
+    device, product FLOPs and collective bytes a cell.  A cell that raises
+    fails the phase."""
+    from repro_torch.configs import ARCHS, SHAPES, applicable
+    from repro_torch.launch import dryrun, roofline
+
+    cells, t0 = {}, time.perf_counter()
+    for arch in sorted(ARCHS):
+        full, red = ARCHS[arch], ARCHS[arch].reduced()
+        overrides = {f.name: getattr(red, f.name)
+                     for f in dataclasses.fields(full)
+                     if f.name != "name"
+                     and getattr(red, f.name) != getattr(full, f.name)}
+        todo = [(f"{arch}/{shape}", arch, shape, overrides)
+                for shape in SHAPES if applicable(full, SHAPES[shape])[0]]
+        todo += [(f"{a}/{shape}/L{n}", a, shape, {"n_layers": n})
+                 for a, shape, n in CUT_DRYRUNS if a == arch]
+        for key, arch_, shape, ov in todo:
+            res = dryrun.run_cell(arch_, shape, multi_pod=False,
+                                  cfg_overrides=ov, out_dir=out_dir)
+            assert res["status"] == "ok", res
+            r = roofline.roofline_cell(res["ops_path"].replace(
+                ".ops.json", ".json"))
+            cells[key] = {
+                "mib": res["memory"]["total_per_device"] / 2**20,
+                "flops": r["op_flops"], "coll_bytes": r["coll_bytes"]}
+    return {"cells": cells, "count": len(cells),
+            "seconds": time.perf_counter() - t0}
+
+
 def launch_phase(train: dict, smi: str) -> dict:
     """The launch tools on the host's CPU (fake tensors, no card time):
     the dry run of granite-moe-1b-a400m × train_4k × pod16x16 at full width
@@ -2103,6 +2159,7 @@ def launch_phase(train: dict, smi: str) -> dict:
     out = {"phase": "launch", "arch": SERVE_ARCH, "card": smi}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
+        out["reduced_cells"] = reduced_dryruns(tmp)
         t0 = time.perf_counter()
         res = dryrun.run_cell(SERVE_ARCH, "train_4k", multi_pod=False,
                               out_dir=tmp)
@@ -2111,19 +2168,30 @@ def launch_phase(train: dict, smi: str) -> dict:
         r = roofline.roofline_cell(os.path.join(tmp, res["cell"] + ".json"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    gib = res["memory"]["total_per_device"] / 2**30
     out["dryrun"] = {
         "cell": res["cell"], "gib_per_device": r["memory_gib"],
-        **{k: r[k] for k in ("compute_s", "memory_s", "collective_s",
-                             "latency_s", "dominant", "step_time_bound_s",
+        **{k: r[k] for k in ("op_flops", "coll_bytes", "compute_s",
+                             "memory_s", "collective_s", "latency_s",
+                             "dominant", "step_time_bound_s",
                              "roofline_fraction")},
+        "reference": DRYRUN_REFERENCE,
+        "ratio": {"gib": gib / DRYRUN_REFERENCE["gib_per_device"],
+                  "flops": r["op_flops"] / DRYRUN_REFERENCE["hlo_flops"],
+                  "coll_bytes": r["coll_bytes"]
+                  / DRYRUN_REFERENCE["coll_bytes"]},
         "memory": res["memory"], "wall_seconds": wall,
-        # held to the reference on a reduced cell by the CPU tests: argument
-        # bytes and FLOPs; the rest is eager DTensor's layout, unverified
-        "unverified": ["memory_s", "collective_s", "latency_s", "dominant",
-                       "step_time_bound_s", "roofline_fraction",
-                       "temp_size_in_bytes"]}
+        # bytes a device, product FLOPs and collective bytes are held to
+        # the reference's dry run by the CPU tests (narrow cells with real
+        # head counts, tests/test_torch_launch_fidelity*.py); HBM bytes and
+        # launches are eager PyTorch's, with no counterpart to hold them to
+        "unverified": ["memory_s", "latency_s", "dominant",
+                       "step_time_bound_s", "roofline_fraction"]}
     assert 0 < r["memory_gib"] and r["dominant"] in (
         "compute", "memory", "collective", "latency"), r
+    # at most 2× the reference's bytes a device; FLOPs within 10%
+    assert gib <= 2 * DRYRUN_REFERENCE["gib_per_device"], out["dryrun"]
+    assert abs(out["dryrun"]["ratio"]["flops"] - 1) <= 0.1, out["dryrun"]
     cell = ShapeCell("train_b8_s512", "train", TRAIN_SEQ, TRAIN_BATCH)
     measured = {cfg.remat: train["plain"]["median_step_ms_after_first"],
                 "none": train["remat_none"]["median_step_ms_after_first"]}

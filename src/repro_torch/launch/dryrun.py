@@ -29,17 +29,25 @@ on the batch axes (M-RoPE ``positions`` on dim 1), the decode cache by
 :func:`cache_specs`.  The step runs the port's own code, with the plain
 routing plan and scans (the kernels have no ``meta`` form), under
 ``implicit_replication`` (tensors the forward makes join the mesh
-replicated).  DTensor's own rules lay out every op, replicating where they
-must (the gathers show in the record), but for a few, each scoped to the
-run (:func:`sharded_execution`):
+replicated), with a hillclimb variant's rules in force for the activations
+too (:func:`~repro_torch.models.shard_utils.act_rules`).  The model states
+its activations' layout by logical axis where the reference's partitioner
+would carry a weight's placement into them (heads, hidden and inner dims
+on ``model``; :func:`~repro_torch.models.shard_utils.constrain`, whose
+cotangent takes the same layout); DTensor's own rules lay out every op
+between those points, replicating where they must (the gathers show in
+the record), but for a few, each scoped to the run
+(:func:`sharded_execution`):
 
-* the ops whose DTensor rule raises: a view it cannot express (torch 2.11
-  raises on attention's (batch, heads) flatten, which 2.13 keeps as a
-  strided shard) is taken on each device's part as 2.13 does, else after
-  a gather; the label gather's masked partial sum is reduced at once;
-  decode's in-place cache write is made on each device's part; on torch
-  2.11 the embedding's backward and a sum whose rule turns a shard into a
-  partial sum run on replicated inputs;
+* views: a flatten or split DTensor's rule cannot express on a plain
+  shard (torch 2.11 raises on attention's (batch, heads) flatten; 2.13
+  makes it a strided shard, whose local shape it computes at a cost of
+  seconds an op) is taken on each device's part, on both versions, else
+  after a gather;
+* the ops whose DTensor rule raises: the label gather's masked partial sum
+  is reduced at once; decode's in-place cache write is made on each
+  device's part; on torch 2.11 the embedding's backward runs on
+  replicated inputs;
 * the routing plan, whose in-place scatters have no DTensor rule, runs
   per group in ``local_map``;
 * the sequential scans (the plain Mamba and RG-LRU loops) run one time
@@ -52,9 +60,10 @@ run (:func:`sharded_execution`):
   tensors of global shape, is not recorded, nor its planning on the
   host's tensors.
 
-The record's FLOPs and argument bytes are held to the reference's dry run
-by the tests; its memory and collective terms follow eager DTensor's
-layouts, which differ from a sharding pass's and between torch versions.
+The record's bytes a device, FLOPs and collective bytes are held to the
+reference's dry run by the tests (narrow cells with real head counts,
+each remaining difference named there); its HBM bytes and launches are
+eager PyTorch's, with no counterpart in a fused program.
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import ARCHS, SHAPES, ShapeCell, applicable, get_config
 from ..models import model as M
-from ..models.shard_utils import act_batch_axes, act_seq_axes, use_mesh
+from ..models.shard_utils import (act_batch_axes, act_rules, act_seq_axes,
+                                  use_mesh)
 from ..optim import AdamW, AdamWState
 from ..train.sharding import (DEFAULT_RULES, axis_sizes, batch_axes,
                               batch_spec, local_shape, map_axes, placements,
@@ -246,24 +256,29 @@ _RECORDER: OpRecorder | None = None
 
 
 def _gathering_view(op, args, kwargs):
-    """A view DTensor's rule cannot express (a flatten of two sharded dims,
-    attention's (batch, heads) under einsum: torch 2.13 keeps it as a
-    strided shard, torch 2.11 raises) is taken on each device's own part
-    where :func:`_local_view` finds the local shape; otherwise (a split
-    whose outer part does not divide the mesh: the microbatches, 8 KV heads
-    on 16) the input is gathered over its sharded mesh dims, innermost
-    first, until the view goes through (the all-gather is recorded)."""
+    """A view of a sharded tensor is taken on each device's own part where
+    :func:`_local_view` finds the local shape (a flatten of two sharded
+    dims, attention's (batch, heads) under einsum, which torch 2.11's rule
+    raises on and 2.13's keeps as a strided shard, slowly), a local part
+    no view can express reshaped; otherwise through DTensor's rule, and
+    where that raises (a split whose outer part does not divide the mesh:
+    the microbatches) the input is gathered over its sharded mesh dims,
+    innermost first, until the view goes through (the all-gather is
+    recorded)."""
     from torch.distributed.tensor import Replicate
     x, size = args[0], _view_size(args[0].shape, args[1])
+    local = _local_view(x, size) if _sharded(x) else None
+    if local is not None:
+        shape, place = local
+        try:
+            out = op(x._local_tensor, shape, *args[2:], **kwargs)
+        except RuntimeError:         # a local part no view can express
+            out = x._local_tensor.reshape(shape)
+        return _wrap(out, x.device_mesh, place, size)
     try:
         return _default(op, args, kwargs)
     except RuntimeError:
         pass
-    local = _local_view(x, size)
-    if local is not None:
-        shape, place = local
-        out = op(x._local_tensor, shape, *args[2:], **kwargs)
-        return _wrap(out, x.device_mesh, place, size)
     place = list(x.placements)
     while True:
         sharded = [i for i, p in enumerate(place) if not p.is_replicate()]
@@ -276,6 +291,12 @@ def _gathering_view(op, args, kwargs):
             return _default(op, (x, *args[1:]), kwargs)
         except RuntimeError:
             continue
+
+
+def _sharded(x) -> bool:
+    """Whether ``x`` is split over a mesh dim of more than one device."""
+    return any(not p.is_replicate() and n > 1
+               for p, n in zip(x.placements, x.device_mesh.shape))
 
 
 def _view_size(shape, size) -> tuple:
@@ -342,6 +363,8 @@ def _local_view(x, size: tuple):
         if len(outs) == 1:                         # merge (or 1 -> 1)
             for d in sharded:
                 for name in by_dim[d]:
+                    if local[outs[0]] % sizes[name]:
+                        return None
                     local[outs[0]] //= sizes[name]
                     owner[name] = outs[0]
         elif len(ins) == 1:                        # split
@@ -383,8 +406,7 @@ def _replicating(op, args, kwargs):
     """``op`` through DTensor's own rule; where that rule raises, on its
     inputs replicated, the gathers recorded.  Seen on torch 2.11 only: the
     embedding's backward (an accumulating ``index_put``: 'Shard dim -1 ...
-    must be normalized') and a sum whose chosen strategy turns a shard
-    into a partial sum (falcon-mamba's decode)."""
+    must be normalized')."""
     try:
         return _default(op, args, kwargs)
     except (RuntimeError, AssertionError):
@@ -407,26 +429,27 @@ def _local(t, mesh_dims_cut):
 
 def _sharded_index_put_(op, args, kwargs):
     """``x[idx...] = values`` in place on a sharded ``x`` (decode's KV
-    cache write), where DTensor's rule raises (an in-place op whose
-    placements would change): each device writes its part.  A sharded
-    indexed dim whose index covers it (the cache's lanes, ``arange(B)``)
-    cuts the index and ``values`` alike; a sharded indexed dim it does not
-    cover (the context position) is written where it lands; a sharded dim
-    past the indices cuts ``values``.  ``values`` is laid out to match
-    first (a pending partial sum is reduced there); any other layout
-    raises DTensor's error."""
+    cache write), whose DTensor rule raises (an in-place op whose
+    placements would change; torch 2.11 replicates ``x`` instead): each
+    device writes its part.  A sharded indexed dim whose index covers it
+    (the cache's lanes, ``arange(B)``) cuts the index and ``values``
+    alike; a sharded indexed dim it does not cover (the context position)
+    is written where it lands; a sharded dim past the indices cuts
+    ``values``.  ``values`` is laid out to match first (a pending partial
+    sum is reduced there); any other layout raises."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    try:
-        return _default(op, args, kwargs)
-    except RuntimeError as e:
-        error = e
     x, indices, values = args[0], list(args[1]), args[2]
+    if not _sharded(x):
+        return _default(op, args, kwargs)
+    error = RuntimeError(f"no local write of {op} on {x.placements}")
     n_idx = len(indices)
     idx = [t for t in indices if t is not None]
     if not idx or any(isinstance(t, DTensor) and not all(
             p.is_replicate() for p in t.placements) for t in idx):
         raise error
     idx_ndim = max(t.dim() for t in idx)
+    # indexing assignment strips ``values``' leading size-1 dims
+    strip = idx_ndim + x.dim() - n_idx - values.dim()
     sizes = axis_sizes(x.device_mesh)
     idx_cuts, val_place = [], []
     for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
@@ -438,9 +461,10 @@ def _sharded_index_put_(op, args, kwargs):
             if d < n_idx and indices[d] is not None:
                 if indices[d].shape[-1] == x.shape[d] and idx_ndim == 1:
                     idx_cuts.append((0, sizes[name]))
-                    vp = Shard(0)
-            elif d >= n_idx:
-                vp = Shard(d - n_idx + idx_ndim)
+                    if strip <= 0:
+                        vp = Shard(0)
+            elif d >= n_idx and d - n_idx + idx_ndim >= strip:
+                vp = Shard(d - n_idx + idx_ndim - strip)
         val_place.append(vp)
     if isinstance(values, DTensor):
         local_values = values.redistribute(
@@ -535,9 +559,8 @@ class _FoldedScan(torch.autograd.Function):
         L = inputs[0].shape[-2]
         with _RECORDER.multiplied(L):
             outs = fn(*_first_step(inputs, timed))
-        with _RECORDER.pause():
-            y = outs[0].expand(*outs[0].shape[:-2], L,
-                               outs[0].shape[-1]).contiguous()
+        with _RECORDER.pause():     # y: the first input's shape and layout
+            y = torch.zeros_like(inputs[0], dtype=outs[0].dtype)
         return (y,) + tuple(outs[1:])
 
     @staticmethod
@@ -605,7 +628,7 @@ def _folded(fn, timed: tuple, n_args: int):
 def sharded_execution(mesh, recorder: OpRecorder):
     """The scope of one recorded step: ``recorder`` on, the handlers of
     the ops whose DTensor rule raises (views, the label gather, the decode
-    cache's write; on torch 2.11 the embedding's backward and some sums),
+    cache's write; on torch 2.11 the embedding's backward),
     folded scans, the routing plan per group, shard moves recorded as
     all-to-alls, implicit replication.  Every other op takes DTensor's own
     rule."""
@@ -623,8 +646,7 @@ def sharded_execution(mesh, recorder: OpRecorder):
              aten.reshape.default: _gathering_view,
              aten.gather.default: _reduced_gather,
              aten.index_put_.default: _sharded_index_put_,
-             aten.index_put.default: _replicating,
-             aten.add.Tensor: _replicating}
+             aten.index_put.default: _replicating}
     patched = {(scan_ops, "selective_scan_ref"): _folded(
                    scan_ops.selective_scan_ref, (0, 1, 3, 4), 7),
                (rglru_ops, "rglru_scan_ref"): _folded(
@@ -759,7 +781,7 @@ def execute_cell(cfg, cell: ShapeCell, mesh, *, rules: dict | None = None,
     mem = {"alias_size_in_bytes": 0}
     ctx_b = act_batch_axes(batch_ax) if batch_ax else contextlib.nullcontext()
     ctx_s = act_seq_axes(seq_ax) if seq_ax else contextlib.nullcontext()
-    with use_mesh(mesh), ctx_b, ctx_s:
+    with use_mesh(mesh), ctx_b, ctx_s, act_rules(rules):
         sspecs = state_specs(cfg, mesh, rules)
         pshapes = M.param_shapes(cfg)
         params = map_axes(lambda e, s, d: _dtensor(mesh, s, d, e),

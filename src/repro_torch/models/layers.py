@@ -22,6 +22,8 @@ of ``DTensor`` activations under the dry run's mesh.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -30,7 +32,8 @@ from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
 from ..kernels.ticket_dispatch.ref import renormalize, top_k_stable
-from .shard_utils import constrain, mesh_axis_size
+from .shard_utils import (ambient_mesh, constrain, mesh_axis_size, pad,
+                          shards, ways)
 
 NEG_INF = -1e30   # the reference's mask value
 
@@ -90,18 +93,31 @@ def softcap(x, cap: float):
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
-def _gqa_expand(k, n_heads):
-    """(B, S, KV, hd) -> (B, S, H, hd) by repeating KV groups."""
-    kv = k.shape[2]
+def _gqa_expand(k, n_heads, dim: int = 2):
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating KV groups (``dim``: the
+    KV heads' dim)."""
+    kv = k.shape[dim]
     if kv == n_heads:
         return k
-    return k.repeat_interleave(n_heads // kv, dim=2)
+    return k.repeat_interleave(n_heads // kv, dim=dim)
 
 
-def _masked_softmax(scores, mask, dtype):
+def _masked_softmax(scores, mask, dtype, split: bool = False,
+                    in_place: bool = False):
     """Masked scores (float32) -> probabilities, cast to the compute dtype
-    after the float32 softmax, as the reference casts."""
-    scores = scores.masked_fill(~mask, NEG_INF)
+    after the float32 softmax, as the reference casts.  ``in_place``: mask
+    ``scores`` itself (a fresh tensor no backward needs), so that a long
+    score tensor lives twice at most, as scores and probabilities.
+    ``split``: the keys lie across the mesh (decode's context-sharded
+    cache), so the softmax is its max, exponentials and sum, each device
+    reducing its own keys and only the statistics crossing the mesh, as
+    the reference's partitioner splits it (DTensor's softmax rule gathers
+    the scores)."""
+    scores = (scores.masked_fill_ if in_place else scores.masked_fill)(
+        ~mask, NEG_INF)
+    if split:
+        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        return (e / e.sum(dim=-1, keepdim=True)).to(dtype)
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
@@ -131,13 +147,13 @@ def _attend_chunked(q, k, v, cfg: ArchConfig, *, causal: bool,
     each query row sees its full key range, so no running softmax is
     needed.  The reference's ``lax.map`` over chunks is a Python loop."""
     B, S, H, hd = q.shape
-    pad = (-S) % q_chunk
-    if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    extra = (-S) % q_chunk
+    if extra:
+        q = pad(q, (0, 0, 0, 0, 0, extra))
     scale = cfg.head_dim ** -0.5
     ki = torch.arange(S, device=q.device)[None, None, None, :]
     outs = []
-    for start in range(0, S + pad, q_chunk):
+    for start in range(0, S + extra, q_chunk):
         qi = q[:, start:start + q_chunk]
         scores = torch.einsum("bqhd,bkhd->bhqk", qi, k).float()
         scores = softcap(scores * scale, cfg.attn_softcap)
@@ -147,28 +163,91 @@ def _attend_chunked(q, k, v, cfg: ArchConfig, *, causal: bool,
             mask = ki <= qpos
         else:
             mask = torch.ones_like(scores, dtype=torch.bool)
-        probs = _masked_softmax(scores, mask, q.dtype)
+        probs = _masked_softmax(scores, mask, q.dtype, in_place=True)
+        del scores                      # no chunk's scores outlive it
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v))
+        del probs
     return torch.cat(outs, dim=1)[:, :S]
 
 
-def _project(p, x, cfg: ArchConfig, positions):
+def _residual(t):
+    """A block's output (B, S, D) as the residual stream holds it: batch on
+    the batch axes, the sequence on 'seq''s (none unless sequence
+    parallel), D whole, or on the FSDP axis where the batch leaves it idle
+    (one lane), as the reference's partitioner keeps it; a pending partial
+    sum over the heads' or hidden dim's mesh axis is reduced here, where
+    the reference's partitioner reduces it (an identity without a mesh)."""
+    return constrain(t, "batch", "seq",
+                     "embed" if _one_lane(t.shape[0]) else None)
+
+
+def _one_lane(b: int) -> bool:
+    """Whether ``b`` lanes leave the batch's mesh axes idle (one lane on
+    16; False without a mesh)."""
+    return ways("batch") > 1 and not shards("batch", b)
+
+
+def _heads(t):
+    """(B, S, H, hd) with its heads on their mesh axis, its batch on the
+    batch axes (an identity without a mesh)."""
+    return constrain(t, "batch", None, "heads", None)
+
+
+def _repeat_heads(t, n_heads: int):
+    """``_gqa_expand`` as an expand and a flatten, which a device takes on
+    its own part of heads sharded over the mesh (a ``repeat_interleave``
+    would gather them)."""
+    B, S, G, hd = t.shape
+    return t[:, :, :, None].expand(B, S, G, n_heads // G, hd).reshape(
+        B, S, n_heads, hd)
+
+
+def _project(p, x, cfg: ArchConfig, positions, cache: bool = True):
     """q, k, v of x (B, S, D) with RoPE on q and k, k and v expanded to H
-    heads, and the (k, v) the cache keeps with its KV heads un-expanded."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    heads, and the (k, v) the cache keeps with its KV heads un-expanded
+    (None when ``cache`` is False).
+
+    Under a mesh the heads lie on their mesh axis.  Where the heads shard
+    it and the KV heads do not (8 KV heads on 16), each device projects
+    only the KV heads its own heads read, as the reference's partitioner
+    lays k and v out: the KV weights are repeated to as many heads as the
+    mesh axis has devices (or a multiple of KV), so each device computes
+    its KV head once, and then expanded to its heads on the device; the
+    cache's KV heads are taken back from them, their context on 'model'
+    (decode's layout)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    wk, wv = p["wk"], p["wv"]
+    expanded = KV != H and shards("heads", H) and not shards("kv_heads", KV)
+    if expanded:
+        groups = math.lcm(KV, ways("heads"))
+        wk, wv = (constrain(_gqa_expand(w, groups, dim=1), "embed", "heads",
+                            None) for w in (wk, wv))
+    q = _heads(torch.einsum("bsd,dhk->bshk", x, p["wq"]))
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    return q, _gqa_expand(k, cfg.n_heads), _gqa_expand(v, cfg.n_heads), (k, v)
+    if expanded:
+        k, v = _heads(k), _heads(v)
+        kv_cache = tuple(constrain(t, "batch", "model", None, None)[
+            :, :, ::groups // KV] for t in (k, v)) if cache else None
+        return (q, _heads(_repeat_heads(k, H)), _heads(_repeat_heads(v, H)),
+                kv_cache)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+    kv_cache = (k, v) if cache else None
+    return q, _heads(_gqa_expand(k, H)), _heads(_gqa_expand(v, H)), kv_cache
 
 
-def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True):
+def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True,
+                   cache: bool = True):
     """Full (global) attention over x (B, S, D); returns (out, (k, v)) with
-    the cache's KV heads un-expanded.  Long sequences (S > 2·Q_CHUNK) take
-    the chunked-query path so the live score tensor stays O(q_chunk · S)."""
+    the cache's KV heads un-expanded (None for (k, v) when ``cache`` is
+    False).  Long sequences (S > 2·Q_CHUNK) take the chunked-query path so
+    the live score tensor stays O(q_chunk · S).  Under a mesh each device
+    attends with its own heads (:func:`_project`)."""
     S = x.shape[1]
-    q, k, v, kv_cache = _project(p, x, cfg, positions)
+    q, k, v, kv_cache = _project(p, x, cfg, positions, cache)
     if S > 2 * Q_CHUNK:
         out = _attend_chunked(q, k, v, cfg, causal=causal)
     else:
@@ -176,13 +255,14 @@ def attention_full(p, x, cfg: ArchConfig, positions, *, causal=True):
                 else torch.ones((1, 1, S, S), dtype=torch.bool,
                                 device=x.device))
         out = _attend(q, k, v, mask, cfg)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
+    return _residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), kv_cache
 
 
-def attention_local(p, x, cfg: ArchConfig, positions):
+def attention_local(p, x, cfg: ArchConfig, positions, *,
+                    cache: bool = True):
     """Sliding-window attention over x (B, S, D), chunked so the cost is
     O(S · 2w), never S×S; returns (out, (k, v)) with the cache's KV heads
-    un-expanded.
+    un-expanded (None for (k, v) when ``cache`` is False).
 
     With S ≤ w it is plain causal attention.  Otherwise q, k, v are padded
     to a multiple of the window w and cut into chunks of w; each query
@@ -193,23 +273,23 @@ def attention_local(p, x, cfg: ArchConfig, positions):
     """
     B, S, _ = x.shape
     w = min(cfg.window, S)
-    q, k, v, kv_cache = _project(p, x, cfg, positions)
+    q, k, v, kv_cache = _project(p, x, cfg, positions, cache)
     if S <= w:
         out = _attend(q, k, v, _causal_mask(S, S, device=x.device), cfg)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
+        return _residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), kv_cache
 
-    pad = (-S) % w
-    if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-    Sp = S + pad
+    extra = (-S) % w
+    if extra:
+        q, k, v = (pad(t, (0, 0, 0, 0, 0, extra)) for t in (q, k, v))
+    Sp = S + extra
     nc = Sp // w
     H, hd = cfg.n_heads, cfg.head_dim
     qc = q.reshape(B, nc, w, H, hd)
     kc = k.reshape(B, nc, w, H, hd)
     vc = v.reshape(B, nc, w, H, hd)
     # keys of chunk i: chunks (i-1, i); chunk -1 is zeros, masked out
-    k_prev = F.pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
-    v_prev = F.pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    k_prev = pad(kc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
+    v_prev = pad(vc, (0, 0, 0, 0, 0, 0, 1, 0))[:, :-1]
     kk = torch.cat([k_prev, kc], dim=2)                 # (B, nc, 2w, H, hd)
     vv = torch.cat([v_prev, vc], dim=2)
 
@@ -221,10 +301,29 @@ def attention_local(p, x, cfg: ArchConfig, positions):
     band = (ki <= qi) & (ki > qi - w)                   # causal, width w
     first = torch.arange(nc, device=x.device)[:, None, None] == 0
     valid = band[None] & ~(first & (ki < w)[None])      # chunk 0: no prev
-    probs = _masked_softmax(scores, valid[:, None], q.dtype)
+    probs = _masked_softmax(scores, valid[:, None], q.dtype, in_place=True)
+    del scores
     out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, vv)
     out = out.reshape(B, Sp, H, hd)[:, :S]
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), kv_cache
+    return _residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), kv_cache
+
+
+def _decode_proj(x, w):
+    """x (B, 1, D) @ w (D, n, hd) -> (B, 1, n, hd).  Under a mesh where the
+    lanes shard and the n heads do not shard their mesh axis but their n·hd
+    columns do (8 KV heads, or gemma3's 4 heads, on 16), each device
+    computes its part of the columns, which are then gathered, as the
+    reference's partitioner splits the one-token projection (DTensor would
+    run it whole on every device of that axis).  With one lane the
+    reference contracts over the FSDP-split D and keeps the columns whole,
+    and so does this."""
+    D, n, hd = w.shape
+    if (ambient_mesh() is None or shards("heads", n)
+            or not shards("heads", n * hd) or not shards("batch", x.shape[0])):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    cols = constrain(w.reshape(D, n * hd), "embed", "heads")
+    out = constrain(torch.einsum("bsd,dk->bsk", x, cols), "batch", None, None)
+    return out.reshape(*x.shape[:2], n, hd)
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
@@ -252,9 +351,9 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     positions = pos_b[:, None]
     if cfg.mrope_sections:      # one position in all three M-RoPE streams
         positions = positions.expand(3, B, 1)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _heads(_decode_proj(x, p["wq"]))
+    k_new = _decode_proj(x, p["wk"])
+    v_new = _decode_proj(x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.mrope_sections)
     lanes = torch.arange(B, device=x.device)
@@ -282,10 +381,12 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     ki = torch.arange(S_ctx, device=x.device)[None, None, None, None, :]
     pm = pos_b[:, None, None, None, None]
     mask = (ki <= pm) | (pm >= S_ctx) if window else ki <= pm
-    probs = _masked_softmax(scores, mask, x.dtype)
+    probs = _masked_softmax(scores, mask, x.dtype,
+                            split=model_size > 1 and not kv_sharded)
     out = torch.einsum("bgmqs,bsgd->bqgmd", probs, cache_v.to(x.dtype))
     out = out.reshape(B, 1, H, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+    return (_residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), cache_k,
+            cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -296,11 +397,18 @@ def _act(name: str):
             }[name]
 
 
+def _ffn(t):
+    """(B, S, ff) with its hidden dim on its mesh axis (an identity
+    without a mesh)."""
+    return constrain(t, "batch", None, "ffn")
+
+
 def mlp(p, x, cfg: ArchConfig):
-    """Gated MLP (SwiGLU/GeGLU)."""
-    h = _act(cfg.act)(torch.einsum("bsd,df->bsf", x, p["wi"]))
-    h = h * torch.einsum("bsd,df->bsf", x, p["wg"])
-    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+    """Gated MLP (SwiGLU/GeGLU); under a mesh each device holds its part of
+    the hidden dim."""
+    h = _act(cfg.act)(_ffn(torch.einsum("bsd,df->bsf", x, p["wi"])))
+    h = h * _ffn(torch.einsum("bsd,df->bsf", x, p["wg"]))
+    return _residual(torch.einsum("bsf,fd->bsd", h, p["wo"]))
 
 
 def router_softmax(p, flat):
@@ -390,13 +498,33 @@ def softplus(x):
                                           device=x.device))
 
 
+def _inner(t):
+    """(B, S, d_inner) with its inner dim on its mesh axis (an identity
+    without a mesh)."""
+    return constrain(t, "batch", None, "inner")
+
+
+def _halves(x, w, axis: str):
+    """``(x @ w).chunk(2, -1)`` for x (B, S, D), w (D, 2k).  Under a mesh
+    that shards w's last dim (logical ``axis``) each half is the product
+    with its half of w, laid out on the mesh: chunking the sharded product
+    would gather it on every device, where the weight's halves cost a
+    gather of the weight."""
+    if not shards(axis, w.shape[-1]):
+        return torch.einsum("bsd,dk->bsk", x, w).chunk(2, dim=-1)
+    return tuple(constrain(torch.einsum(
+        "bsd,dk->bsk", x, constrain(h, "embed", axis)), "batch", None, axis)
+        for h in w.chunk(2, dim=-1))
+
+
 def _ssm_inputs(p, xin, cfg: ArchConfig):
     """dt (softplus'd), B and C of the selective scan from the conv'd
     input (B, S, d_inner)."""
     dtr, N = cfg.dt_rank, cfg.ssm_state
-    proj = torch.einsum("bsd,dk->bsk", xin, p["x_proj"])       # (B,S,dtr+2N)
+    proj = constrain(torch.einsum("bsd,dk->bsk", xin, p["x_proj"]),
+                     "batch", None, None)                      # (B,S,dtr+2N)
     dt_in, Bm, Cm = proj.split([dtr, N, N], dim=-1)
-    dt = softplus(torch.einsum("bsk,kd->bsd", dt_in, p["dt_proj"])
+    dt = softplus(_inner(torch.einsum("bsk,kd->bsd", dt_in, p["dt_proj"]))
                   + p["dt_bias"])
     return dt, Bm, Cm
 
@@ -420,21 +548,23 @@ def mamba_block(p, x, cfg: ArchConfig, scan: str = "auto"):
     """
     B, S, D = x.shape
     kw = cfg.ssm_conv
-    xz = torch.einsum("bsd,dk->bsk", x, p["in_proj"])           # (B,S,2di)
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = _halves(x, p["in_proj"], "inner")                   # (B,S,di)
 
     # depthwise causal conv1d, width ssm_conv: stacked shifted views
-    xpad = F.pad(xin, (0, 0, kw - 1, 0))
-    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=-1)
+    xpad = pad(xin, (0, 0, kw - 1, 0))
+    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=3)
     conv = torch.einsum("bsdk,dk->bsd", shifted, p["conv_w"]) + p["conv_b"]
-    xin = F.silu(conv)
+    xin = _inner(F.silu(conv))
 
     dt, Bm, Cm = _ssm_inputs(p, xin, cfg)
-    y, h_final = selective_scan(xin, dt, _ssm_A(p, xin.dtype), Bm, Cm,
+    y, h_final = selective_scan(xin, _inner(dt), _ssm_A(p, xin.dtype),
+                                *(constrain(t, "batch", None, None)
+                                  for t in (Bm, Cm)),
                                 p["D_skip"], mode=scan)
-    y = y * F.silu(z)
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
-    conv_tail = xpad[:, S:] if kw == 1 else xpad[:, -(kw - 1):]
+    y = _inner(y) * F.silu(z)
+    out = _residual(torch.einsum("bsk,kd->bsd", y, p["out_proj"]))
+    # the tail copied out: a view would keep the whole padded input alive
+    conv_tail = (xpad[:, S:] if kw == 1 else xpad[:, -(kw - 1):]).clone()
     return out, (h_final, conv_tail)
 
 
@@ -443,11 +573,14 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
     kernel).  x (B, 1, D); ssm_state (B, d_inner, N); conv_state
     (B, kw-1, d_inner).  Returns (y, new_ssm, new_conv); the states are
     new tensors (the caller writes them into its cache)."""
-    xz = torch.einsum("bsd,dk->bsk", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)                                # (B,1,di)
+    # one token: split the product, its partial sums reduced first
+    # (gathering a token's 2·d_inner costs less than gathering the weight,
+    # as _halves would)
+    xz = _inner(torch.einsum("bsd,dk->bsk", x, p["in_proj"]))
+    xin, z = (_inner(t) for t in xz.chunk(2, dim=-1))          # (B,1,di)
     window = torch.cat([conv_state, xin], dim=1)                # (B,kw,di)
     conv = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
-    xin1 = F.silu(conv)[:, None, :]                             # (B,1,di)
+    xin1 = _inner(F.silu(conv)[:, None, :])                     # (B,1,di)
     dt, Bm, Cm = _ssm_inputs(p, xin1, cfg)
     dt = dt[:, 0]                                               # (B,di)
     A = _ssm_A(p, x.dtype)
@@ -456,7 +589,7 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
     new_ssm = dA * ssm_state + dBx
     y = (new_ssm * Cm[:, 0][:, None, :]).sum(-1) + p["D_skip"] * xin1[:, 0]
     y = (y * F.silu(z[:, 0]))[:, None, :]
-    out = torch.einsum("bsk,kd->bsd", y, p["out_proj"])
+    out = _residual(torch.einsum("bsk,kd->bsd", y, p["out_proj"]))
     return out, new_ssm, window[:, 1:]
 
 
@@ -466,12 +599,19 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
 RGLRU_C = 8.0
 
 
+def _lru(t):
+    """(B, S, w) with its width on its mesh axis (an identity without a
+    mesh)."""
+    return constrain(t, "batch", None, "lru")
+
+
 def _rglru_gates(p, conv, dtype):
     """a and b of the recurrence from the conv'd input (..., w), as the
     reference computes them: a = exp(-c·softplus(Λ)·σ(r)) in float32 from
     the float32 ``lam``, **rounded to x's dtype before it makes b**;
     b = sqrt(max(1 - a², 1e-12)) (float32, then rounded) · σ(i)·conv."""
     gates = torch.einsum("...w,wk->...k", conv, p["w_rg"])
+    gates = constrain(gates, "batch", *(None,) * (gates.dim() - 1))
     r, i = gates.chunk(2, dim=-1)
     a = torch.exp(-RGLRU_C * softplus(p["lam"].float())
                   * torch.sigmoid(r.float())).to(dtype)
@@ -497,17 +637,18 @@ def rglru_block(p, x, cfg: ArchConfig, h0=None, scan: str = "auto"):
     """
     B, S, D = x.shape
     kw = cfg.conv_width
-    xb = torch.einsum("bsd,dw->bsw", x, p["w_x"])               # (B,S,w)
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]),
+    xb = _lru(torch.einsum("bsd,dw->bsw", x, p["w_x"]))         # (B,S,w)
+    gate = F.gelu(_lru(torch.einsum("bsd,dw->bsw", x, p["w_gate"])),
                   approximate="tanh")
-    xpad = F.pad(xb, (0, 0, kw - 1, 0))
-    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=-1)
+    xpad = pad(xb, (0, 0, kw - 1, 0))
+    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=3)
     conv = torch.einsum("bswk,wk->bsw", shifted, p["conv_w"]) + p["conv_b"]
-    a, b = _rglru_gates(p, conv, x.dtype)
+    a, b = (_lru(t) for t in _rglru_gates(p, _lru(conv), x.dtype))
     y, h_final = rglru_scan(a, b, h0, mode=scan)
-    y = y * gate
-    out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
-    return out, (h_final, xpad[:, -(kw - 1):])
+    y = _lru(y) * gate
+    out = _residual(torch.einsum("bsw,wd->bsd", y, p["w_out"]))
+    # the tail copied out: a view would keep the whole padded input alive
+    return out, (h_final, xpad[:, -(kw - 1):].clone())
 
 
 def rglru_decode(p, x, h, conv_state, cfg: ArchConfig):
@@ -515,13 +656,17 @@ def rglru_decode(p, x, h, conv_state, cfg: ArchConfig):
     kernel).  x (B, 1, D); h (B, w); conv_state (B, kw-1, w).  Returns (y,
     new_h, new_conv); the states are new tensors (the caller writes them
     into its cache)."""
-    xb = torch.einsum("bsd,dw->bsw", x, p["w_x"])               # (B,1,w)
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_gate"]),
+    xb = _lru(torch.einsum("bsd,dw->bsw", x, p["w_x"]))         # (B,1,w)
+    gate = F.gelu(_lru(torch.einsum("bsd,dw->bsw", x, p["w_gate"])),
                   approximate="tanh")
     window = torch.cat([conv_state, xb], dim=1)                 # (B,kw,w)
     conv = torch.einsum("bkw,wk->bw", window, p["conv_w"]) + p["conv_b"]
+    if _one_lane(x.shape[0]):
+        # the gate product's columns lie on the idle batch axes, as the
+        # reference's partitioner splits it
+        p = {**p, "w_rg": constrain(p["w_rg"], "lru", "batch")}
     a, b = _rglru_gates(p, conv, x.dtype)
     h_new = a * h + b
     y = (h_new * gate[:, 0])[:, None, :]
-    out = torch.einsum("bsw,wd->bsd", y, p["w_out"])
+    out = _residual(torch.einsum("bsw,wd->bsd", y, p["w_out"]))
     return out, h_new, window[:, 1:]

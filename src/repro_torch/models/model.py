@@ -37,7 +37,8 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from . import layers as L
-from .shard_utils import constrain
+from .shard_utils import (ambient_mesh, constrain, gathered, shards,
+                          take_rows)
 
 KINDS = ("global", "local", "mamba", "rglru")
 # parameter inits kept in float32 whatever the config's dtype
@@ -349,12 +350,20 @@ def _ring(t, window: int):
 
 
 def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
-                dispatch: str = "auto", scan: str = "auto"):
+                dispatch: str = "auto", scan: str = "auto",
+                cache: bool = True):
     """One layer; returns (x, aux_loss, cache_entry).  ``dispatch`` is the
     MoE routing-plan mode (:func:`layers.moe`), ``scan`` the mode of
     the recurrences' scans (the selective scan of :func:`layers.mamba_block`
-    and the RG-LRU scan of :func:`layers.rglru_block`)."""
+    and the RG-LRU scan of :func:`layers.rglru_block`).  With ``cache``
+    False an attention layer's entry is None (nothing of it is made).
+    Under a mesh the layer's weights are gathered over their FSDP axis
+    first (:func:`shard_utils.gathered`)."""
     _require_ported(kind, cfg)
+    if ambient_mesh() is not None:
+        specs = _layer_specs(kind, cfg)
+        p = {k: gathered(v, *(None if a == "embed" else a for a in specs[k]))
+             for k, v in p.items()}
     h = L.rms_norm(p["ln1"], x, cfg.rms_eps)
     no_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mamba":
@@ -364,13 +373,13 @@ def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
         out, (hf, conv) = L.rglru_block(p, h, cfg, scan=scan)
         return _mlp(p, x + out, cfg), no_aux, {"h": hf, "conv": conv}
     if kind == "local":
-        attn_out, (ck, cv) = L.attention_local(p, h, cfg, positions)
-        ck, cv = _ring(ck, cfg.window), _ring(cv, cfg.window)
+        attn_out, kv = L.attention_local(p, h, cfg, positions, cache=cache)
+        kv = kv and tuple(_ring(t, cfg.window) for t in kv)
     else:
-        attn_out, (ck, cv) = L.attention_full(p, h, cfg, positions,
-                                              causal=cfg.causal)
+        attn_out, kv = L.attention_full(p, h, cfg, positions,
+                                        causal=cfg.causal, cache=cache)
     x, aux = _mixer_mlp(p, x + attn_out, cfg, dispatch)
-    return x, aux, {"k": ck, "v": cv}
+    return x, aux, kv and {"k": kv[0], "v": kv[1]}
 
 
 def _mask_pad_logits(logits, cfg: ArchConfig):
@@ -378,15 +387,25 @@ def _mask_pad_logits(logits, cfg: ArchConfig):
     pad token.  Applied after softcap."""
     if cfg.padded_vocab == cfg.vocab:
         return logits
+    if shards("vocab", logits.shape[-1]):
+        # under a mesh that shards the vocab: a select on each device's
+        # part (writing the tail in place would gather the vocab)
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= cfg.vocab
+        return torch.where(pad, L.NEG_INF, logits)
     logits[..., cfg.vocab:] = L.NEG_INF
     return logits
 
 
+def _embed_scale(cfg: ArchConfig) -> float:
+    """sqrt(d_model) rounded to the compute dtype, as the reference scales
+    the token embedding (a host scalar: no copy to the device)."""
+    return torch.tensor(np.sqrt(cfg.d_model), dtype=torch_dtype(cfg)).item()
+
+
 def _embed(params, tokens, cfg: ArchConfig):
-    """Token embedding × sqrt(d_model) rounded to the compute dtype, as the
-    reference scales (a host scalar: no copy to the device)."""
-    scale = torch.tensor(np.sqrt(cfg.d_model), dtype=torch_dtype(cfg))
-    return params["embed"][tokens] * scale.item()
+    """Token embedding × :func:`_embed_scale`."""
+    return params["embed"][tokens] * _embed_scale(cfg)
 
 
 def _embed_inputs(params, batch: dict, cfg: ArchConfig):
@@ -443,16 +462,17 @@ def _remat_context(cfg: ArchConfig):
                      "full")
 
 
-def _period(x, period, cfg: ArchConfig, positions, dispatch: str, scan: str):
+def _period(x, period, cfg: ArchConfig, positions, dispatch: str, scan: str,
+            cache: bool = True):
     """One period of the stack (the layers of the layer pattern); returns
     (x, the period's aux loss, its cache entries by slot)."""
     aux_p = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for kind, p in zip(cfg.layer_pattern, period):
-        x, aux, cache = apply_layer(kind, p, x, cfg, positions, dispatch,
-                                    scan)
+        x, aux, entry = apply_layer(kind, p, x, cfg, positions, dispatch,
+                                    scan, cache)
         aux_p = aux_p + aux
-        caches.append(cache)
+        caches.append(entry)
     x = constrain(x, "batch", "seq", None)
     return x, aux_p, caches
 
@@ -488,7 +508,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
     stack_caches = {f"slot{j}": [] for j in range(cfg.period)} \
         if cfg.n_periods else {}
     run = functools.partial(_period, cfg=cfg, positions=positions,
-                            dispatch=dispatch, scan=scan)
+                            dispatch=dispatch, scan=scan,
+                            cache=collect_cache)
     for period in _periods(params, cfg):
         recorded = torch.is_grad_enabled() and (x.requires_grad or any(
             v.requires_grad for p in period for v in p.values()))
@@ -503,7 +524,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
     tail_caches = []
     for i, kind in enumerate(cfg.tail_kinds):
         x, aux, cache = apply_layer(kind, params["tail"][i], x, cfg,
-                                    positions, dispatch, scan)
+                                    positions, dispatch, scan, collect_cache)
         aux_total = aux_total + aux
         tail_caches.append(cache)
     logits = constrain(_logits(params, x, cfg), "batch", None, "model")
@@ -537,6 +558,31 @@ def train_modes(cfg: ArchConfig, use_pallas: bool) -> tuple[str, str]:
     return TRAIN_MODES[bool(use_pallas)]
 
 
+def _logsumexp(logits):
+    """``logsumexp`` over the vocab; under a mesh that shards the vocab as
+    the max, then the log of the sum of exponentials, as the reference's
+    ``jax.nn.logsumexp`` is partitioned: each device reduces its own part
+    of the vocab and only the (B, S) statistics cross the mesh (DTensor's
+    rule for ``logsumexp`` gathers the whole vocab on every device)."""
+    if not shards("vocab", logits.shape[-1]):
+        return torch.logsumexp(logits, dim=-1)
+    top = logits.amax(dim=-1, keepdim=True).detach()
+    return (top + torch.exp(logits - top).sum(-1, keepdim=True).log())[..., 0]
+
+
+def _label_logit(logits, labels):
+    """Each position's logit at its label.  A gather, but under a mesh that
+    shards the vocab a masked sum over it, as the reference's one-hot
+    contraction is partitioned: each device sums its own part of the vocab
+    (a gather's backward would build the whole (B, S, V) gradient on every
+    device).  The same value: one term is non-zero."""
+    V = logits.shape[-1]
+    if not shards("vocab", V):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    hit = torch.arange(V, device=labels.device) == labels[..., None]
+    return torch.where(hit, logits, 0.0).sum(-1)
+
+
 def loss_fn(params, batch: dict, cfg: ArchConfig, *,
             use_pallas: bool = False):
     """Next-token cross entropy + MoE aux.  Returns (loss, metrics).
@@ -551,8 +597,8 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *,
     labels = batch["labels"].long()
     mask = (labels >= 0).to(torch.float32)
     labels = labels.clamp_min(0)
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    label_logit = _label_logit(logits, labels)
     nll = lse - label_logit
     denom = torch.clamp_min(mask.sum(), 1.0)
     ce = (nll * mask).sum() / denom
@@ -610,14 +656,17 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig, *,
         raise ValueError(f"unknown scan mode {scan!r}; options: "
                          f"{SCAN_MODES}")
     _check_ported(cfg)
-    x = _embed(params, tokens, cfg)
+    # _embed with each device taking its own rows of the table
+    x = constrain(take_rows(params["embed"], tokens, "vocab")
+                  * _embed_scale(cfg), "batch", "seq", None)
     for kind, p, where in _layers(params, cfg):
         if where[0] == "stack":
             c = {k: v[where[2]] for k, v in cache["stack"][where[1]].items()}
         else:
             c = cache["tail"][where[1]]
         x, _ = _decode_layer(kind, p, x, c, pos, cfg, dispatch)
-    return _logits(params, x, cfg)[:, 0], cache
+    logits = constrain(_logits(params, x, cfg), "batch", None, "model")
+    return logits[:, 0], cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_ctx: int, dtype=None, *,

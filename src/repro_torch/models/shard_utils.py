@@ -9,6 +9,16 @@ doesn't have (e.g. 'pod' on the single-pod mesh) or that don't divide the
 dimension.  Under a mesh it ``redistribute``\\ s the tensor to the
 placements its logical axes give (a pending partial sum is reduced there,
 as XLA reduces it at a sharding constraint).
+
+Beside the reference's activation axes (``batch``, ``seq``, ``model``) a
+constraint may name a parameter axis (``heads``, ``kv_heads``, ``ffn``,
+``inner``, ``lru``, ``vocab``, ``embed``, ``experts``), resolved through
+the rules that laid the parameters out (:data:`~repro_torch.train.sharding.
+DEFAULT_RULES` merged with :func:`act_rules`' overrides).  The reference
+names only its few boundaries and lets XLA's sharding pass carry each
+weight's placement into the activations between them; DTensor has no such
+pass (each op decides from its inputs, and replicates where its rule cannot
+keep a shard), so the port states those placements where they arise.
 """
 
 from __future__ import annotations
@@ -16,7 +26,9 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
-from ..train.sharding import axis_sizes, placements
+import torch
+
+from ..train.sharding import DEFAULT_RULES, axis_sizes, placements
 
 # logical activation axes -> preferred mesh axes, in priority order
 _ACT_RULES = {
@@ -39,6 +51,10 @@ _SEQ_AXES = contextvars.ContextVar("repro_torch_seq_axes", default=())
 
 _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 
+# Hillclimb override: the logical parameter rules the activations follow
+# (merged over DEFAULT_RULES), e.g. {"heads": None} replicates q/k/v.
+_RULES = contextvars.ContextVar("repro_torch_rules", default=None)
+
 
 @contextlib.contextmanager
 def act_batch_axes(axes):
@@ -58,6 +74,35 @@ def act_seq_axes(axes):
         yield
     finally:
         _SEQ_AXES.reset(token)
+
+
+@contextlib.contextmanager
+def act_rules(rules):
+    """Temporarily override the parameter rules activations resolve
+    through (a hillclimb variant's ``rules``, without ``__batch__`` and
+    ``__seq__``)."""
+    token = _RULES.set(dict(rules or {}))
+    try:
+        yield
+    finally:
+        _RULES.reset(token)
+
+
+def _mesh_axes(name) -> tuple:
+    """The mesh axes, in priority order, a logical axis name asks for: the
+    activation axes' own, else the parameter rules in force."""
+    if name == "batch":
+        return _BATCH_AXES.get()
+    if name == "seq":
+        return _SEQ_AXES.get()
+    if name in _ACT_RULES:
+        return _ACT_RULES[name]
+    rules = {**DEFAULT_RULES, **(_RULES.get() or {})}
+    if name in rules:
+        axis = rules[name]
+        return () if axis is None else (
+            (axis,) if isinstance(axis, str) else tuple(axis))
+    return (name,)
 
 
 @contextlib.contextmanager
@@ -83,25 +128,92 @@ def mesh_axis_size(name: str) -> int:
     return axis_sizes(mesh).get(name, 1)
 
 
-def constrain(x, *axes):
-    """constrain(x, 'batch', None, 'model') — logical per-dim annotation."""
-    mesh = ambient_mesh()
-    if mesh is None:
-        return x
+def pad(x, widths: tuple):
+    """``F.pad(x, widths)`` (zeros); under a mesh, on each device's own part
+    of a ``DTensor`` through ``local_map``, its placements kept: the padded
+    dims are whole on every device (torch 2.11's sharding rule for the
+    pad raises on a two-dim mesh)."""
+    import torch.nn.functional as F
+    if ambient_mesh() is None:
+        return F.pad(x, widths)
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
-        return x
+        return F.pad(x, widths)
+    from torch.distributed.tensor.experimental import local_map
+    padded = {x.dim() - 1 - i // 2 for i, w in enumerate(widths) if w}
+    if any(getattr(p, "dim", None) in padded for p in x.placements):
+        raise ValueError(f"pad {widths} of a dim sharded as {x.placements}")
+    place = tuple(x.placements)
+    return local_map(lambda t: F.pad(t, widths), out_placements=(place,),
+                     in_placements=(place,), device_mesh=x.device_mesh)(x)
+
+
+def take_rows(table, idx, name):
+    """``table[idx]`` for a table (rows, ...) whose rows are logical axis
+    ``name``; under a mesh that shards them over one mesh dim, each device
+    takes the indices that fall in its own rows (zeros for the others')
+    and the result stays a partial sum over that dim, reduced at the next
+    constraint, as the reference's partitioner runs the gather (DTensor's
+    rule moves the whole table between devices).  The indices are
+    gathered to every device."""
+    if ambient_mesh() is None:
+        return table[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor) or not shards(name, table.shape[0]):
+        return table[idx]
+    place = tuple(table.placements)
+    cut = [m for m, p in enumerate(place) if p == Shard(0)]
+    if len(cut) != 1:
+        return table[idx]
+    mesh = table.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    idx = idx.redistribute(mesh, whole) if isinstance(idx, DTensor) else \
+        DTensor.from_local(idx, mesh, whole, run_check=False)
+    out_place = tuple(Partial() if p == Shard(0) else
+                      Shard(p.dim - 1 + idx.dim()) if isinstance(p, Shard)
+                      else p for p in place)
+
+    def local(t, i):
+        j = i - mesh.get_coordinate()[cut[0]] * t.shape[0]
+        hit = (j >= 0) & (j < t.shape[0])
+        rows = t[j.clamp(0, t.shape[0] - 1)]
+        return rows * hit[(...,) + (None,) * (t.dim() - 1)].to(t.dtype)
+
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(local, out_placements=(out_place,),
+                     in_placements=(place, whole), device_mesh=mesh)(
+                         table, idx)
+
+
+def ways(name) -> int:
+    """The number of devices the mesh axes of logical axis ``name`` span
+    under the ambient mesh and rules (1 without a mesh)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return 1
+    sizes = axis_sizes(mesh)
+    total = 1
+    for a in _mesh_axes(name):
+        total *= sizes.get(a, 1)
+    return total
+
+
+def shards(name, dim: int) -> bool:
+    """Whether a dim of size ``dim`` named ``name`` shards under the
+    ambient mesh and rules (False without a mesh)."""
+    n = ways(name)
+    return n > 1 and dim % n == 0
+
+
+def _placements(mesh, shape, axes) -> tuple:
+    """The DTensor placements of logical ``axes`` for ``shape``: a dim
+    whose axes are absent, used or do not divide it is replicated."""
     sizes = axis_sizes(mesh)
     entries = []
     used: set = set()
-    for dim, name in zip(x.shape, axes):
+    for dim, name in zip(shape, axes):
         chosen = None
-        if name == "batch":
-            want = _BATCH_AXES.get()
-        elif name == "seq":
-            want = _SEQ_AXES.get()
-        else:
-            want = _ACT_RULES.get(name, (name,) if name else ())
+        want = _mesh_axes(name)
         present = tuple(a for a in want if a in sizes and a not in used)
         if present:
             total = 1
@@ -111,7 +223,62 @@ def constrain(x, *axes):
                 chosen = present if len(present) > 1 else present[0]
                 used.update(present)
         entries.append(chosen)
-    want_pl = placements(tuple(entries), mesh)
+    return placements(tuple(entries), mesh)
+
+
+def gathered(w, *axes):
+    """A weight laid out for its use by logical ``axes`` (its FSDP axis
+    given as None: gathered), through DTensor's own redistribution, whose
+    backward reduce-scatters the gradient back onto the weight's
+    placements at once, as the reference's partitioner does a layer at a
+    time (gathered inside an op, the weight's gradient would stay a
+    partial sum at full width until the step's end).  ``w`` itself
+    without a mesh."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return w
+    from torch.distributed.tensor import DTensor
+    if not isinstance(w, DTensor):
+        return w
+    want = _placements(mesh, w.shape, axes)
+    return w if tuple(w.placements) == want else w.redistribute(mesh, want)
+
+
+def constrain(x, *axes):
+    """constrain(x, 'batch', None, 'model') — logical per-dim annotation;
+    a parameter axis ('heads', 'ffn', ...) takes the mesh axis its rule
+    gives."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want_pl = _placements(mesh, x.shape, axes)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Constrain.apply(x, want_pl)
     if tuple(x.placements) == want_pl:
         return x
     return x.redistribute(mesh, want_pl)
+
+
+class _Constrain(torch.autograd.Function):
+    """A redistribution whose cotangent is laid out as its output, as the
+    transpose of XLA's sharding constraint is the same constraint on the
+    cotangent.  (DTensor's own ``redistribute`` takes the cotangent in
+    whatever layout the backward ops give it, and its rules pick those
+    by communication alone, some at full width on every device.)  A
+    partial sum the forward reduced takes its cotangent replicated."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(grad.device_mesh, ctx.want)
+        return grad, None

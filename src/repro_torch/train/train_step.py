@@ -103,8 +103,8 @@ def build_train_step(cfg: ArchConfig, optimizer: AdamW,
             split = {k: _split_mb(v, B) for k, v in batch.items()}
             split = {k: _batch_constrained(k, v) for k, v in split.items()}
             adt = _ACCUM_DTYPES[options.accum_dtype]
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=adt,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=adt),
+                             params)
             ms = []
             for a in range(A):
                 g, m = grads_of(params, {k: v[a] for k, v in split.items()})

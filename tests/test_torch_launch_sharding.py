@@ -28,9 +28,9 @@ from repro_torch.configs import ARCHS, SHAPES, applicable, cells_for
 from repro_torch.launch import hillclimb
 from repro_torch.launch.mesh import links_crossed, make_local_mesh
 from repro_torch.models.model import param_specs
-from repro_torch.models.shard_utils import (act_batch_axes, act_seq_axes,
-                                            constrain, mesh_axis_size,
-                                            use_mesh)
+from repro_torch.models.shard_utils import (act_batch_axes, act_rules,
+                                            act_seq_axes, constrain,
+                                            mesh_axis_size, shards, use_mesh)
 from repro_torch.train import sharding
 from repro_torch.train.train_step import _constrain_like_params
 
@@ -155,6 +155,81 @@ def test_constrain_lays_dtensors_out_by_logical_axes(mesh):
                 Shard(0), Shard(0))
         assert constrain(_replicated(mesh, (6, 3)), "batch",
                          "model").placements == (Replicate(), Replicate())
+
+
+def test_a_variant_rule_changes_an_activation_placement(mesh):
+    """Parameter axes resolve through the rules, a hillclimb variant's
+    overrides included: ``heads: None`` replicates q/k/v, and the dry run
+    hands a variant's rules to the model (attention's products run on
+    every head of a device's rows)."""
+    from torch.distributed.tensor import Replicate, Shard
+    q = _replicated(mesh, (8, 6, 4, 16))              # (B, S, H, hd)
+    with use_mesh(mesh):
+        assert shards("heads", 4) and not shards("heads", 3)
+        assert constrain(q, "batch", None, "heads", None).placements == (
+            Shard(0), Shard(2))
+        with act_rules({"heads": None}):
+            assert not shards("heads", 4)
+            assert constrain(q, "batch", None, "heads", None).placements \
+                == (Shard(0), Replicate())
+        with act_rules({"ffn": "data"}), act_batch_axes(("model",)):
+            assert constrain(_replicated(mesh, (8, 6, 32)), "batch", None,
+                             "ffn").placements == (Shard(2), Shard(0))
+
+    import dataclasses
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(ARCHS["granite-moe-1b-a400m"].reduced(),
+                              n_heads=16, n_kv_heads=8)
+    cell = ShapeCell("t", "prefill", 64, 8)
+
+    def attention_batches(rules):
+        _, rows = dryrun.execute_cell(cfg, cell, mesh, rules=rules)
+        return {int(r["shapes"].split("x")[0]) for r in rows
+                if r["op"] == "aten.bmm" and f"x{cfg.head_dim}," in
+                r["shapes"] and not r["shapes"].startswith("1x")}
+    # 2 rows a device (8 over data = 4) × 8 heads (16 over model = 2), or
+    # all 16 heads under the variant
+    assert attention_batches(None) == {2 * 8}
+    assert attention_batches({"heads": None}) == {2 * 16}
+
+
+def test_constrain_lays_the_cotangent_out_as_its_output(mesh):
+    """As XLA's sharding constraint, whose transpose constrains the
+    cotangent alike: the gradient that flows back through a constraint
+    takes the constrained layout, whatever layout the ops after it gave."""
+    from torch.distributed.tensor import Replicate, Shard
+    x = _replicated(mesh, (8, 6, 4)).requires_grad_(True)
+    with use_mesh(mesh):
+        y = constrain(x, "batch", None, "model")
+        assert y.placements == (Shard(0), Shard(2))
+        # the sum's backward hands a replicated cotangent back
+        grad, = torch.autograd.grad(y.sum(), x)
+    assert grad.placements == (Shard(0), Shard(2))
+    assert tuple(grad._local_tensor.shape) == (2, 6, 2)
+    with use_mesh(mesh):      # without autograd: a plain redistribution
+        assert constrain(x.detach(), None, None, "model").placements == (
+            Replicate(), Shard(2))
+
+
+def test_pad_runs_on_each_devices_part(mesh):
+    """``shard_utils.pad`` pads each device's part, its placements kept;
+    a padded dim that is sharded raises."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.models.shard_utils import pad
+    plain = torch.zeros(8, 6, 4)
+    assert pad(plain, (0, 0, 3, 0)).shape == F.pad(plain, (0, 0, 3, 0)).shape
+    with use_mesh(mesh):
+        x = constrain(_replicated(mesh, (8, 6, 4)), "batch", None, "model")
+        y = pad(x, (0, 0, 3, 0))
+        assert tuple(y.shape) == (8, 9, 4)
+        assert y.placements == (Shard(0), Shard(2))
+        assert tuple(y._local_tensor.shape) == (2, 9, 2)
+        with pytest.raises(ValueError):
+            pad(x, (1, 0))
 
 
 def test_constrain_like_params_gives_each_grad_its_params_placements(mesh):
