@@ -9,11 +9,27 @@ On the CPU with a reduced config::
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-1b-a400m --reduced --device cpu
 
-Any ported decoder serves the same way: ``--arch falcon-mamba-7b`` is the
-Mamba-1 stack, whose prefills run the selective-scan kernel on the GPU;
-``--arch recurrentgemma-9b`` the Griffin hybrid (RG-LRU and sliding-window
-attention, 9.4 B parameters, 18.8 GB in bf16), whose prefills run the
-RG-LRU scan kernel on the GPU.
+Every decoder of ``repro_torch.configs`` serves the same way, with its
+weights in bf16 on one 80 GB card:
+
+- ``granite-moe-1b-a400m`` (2.7 GB) and ``grok-1-314b`` (MoE: every MoE
+  layer's routing plan is one launch of the routing-plan kernel on the
+  GPU; grok's 64 layers take 633 GB, so on one card only a cut depth
+  serves, 4 layers in 42.6 GB);
+- ``deepseek-7b`` (13.8 GB) and ``mistral-large-123b`` (245 GB: on one
+  card 8 of its 88 layers, 23.8 GB);
+- ``gemma3-1b`` (2.0 GB) and ``gemma2-27b`` (54.5 GB): local and global
+  attention, the local layers' caches rings of the window;
+- ``falcon-mamba-7b`` (14.5 GB), the Mamba-1 stack, whose prefills run the
+  selective-scan kernel on the GPU;
+- ``recurrentgemma-9b`` (18.8 GB), the Griffin hybrid (RG-LRU and
+  sliding-window attention), whose prefills run the RG-LRU scan kernel on
+  the GPU.
+
+Each runs here with ``--arch <name> --reduced --device cpu``.
+``qwen2-vl-72b`` is served by neither package: its prefill reads a
+``vision_mask`` that a prompt of tokens does not carry (``KeyError``), as
+in the reference; ``hubert-xlarge`` is encoder-only.
 
 The flags and the printout are the reference's (``repro.launch.serve``),
 plus ``--device``; weights are random, drawn from ``--seed``.

@@ -86,8 +86,25 @@ def apply_rope(x, positions, theta: float = 10000.0, sections: tuple = ()):
     return out.to(x.dtype)
 
 
-def softcap(x, cap: float):
-    return cap * torch.tanh(x / cap) if cap else x
+def _overwritable(t) -> bool:
+    """Whether a fresh tensor ``t`` may be computed on in place: no
+    autograd records it and no mesh lays it out (the dry run's byte counts
+    stay those of the reference's separate buffers).  A serve's prefill
+    then holds one float32 copy of its scores and logits, as the
+    reference's fused softcap and softmax do, not three."""
+    return ambient_mesh() is None and not (torch.is_grad_enabled()
+                                           and t.requires_grad)
+
+
+def softcap(x, cap: float, in_place: bool = False):
+    """cap · tanh(x / cap), or x for cap 0.  ``in_place``: x is a fresh
+    tensor nothing else reads, computed on in place where
+    :func:`_overwritable` allows; the same bits either way."""
+    if not cap:
+        return x
+    if in_place and _overwritable(x):
+        return x.div_(cap).tanh_().mul_(cap)
+    return cap * torch.tanh(x / cap)
 
 
 # ---------------------------------------------------------------------------
@@ -118,14 +135,25 @@ def _masked_softmax(scores, mask, dtype, split: bool = False,
     if split:
         e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
         return (e / e.sum(dim=-1, keepdim=True)).to(dtype)
+    if in_place and _overwritable(scores):
+        return torch.softmax(scores, dim=-1, out=scores).to(dtype)
     return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _scores(spec: str, q, k, cfg: ArchConfig):
+    """Float32 attention scores ``einsum(spec, q, k)`` × head_dim^-0.5,
+    softcapped by ``cfg.attn_softcap``: in place where
+    :func:`_overwritable` allows (the same bits)."""
+    scores = torch.einsum(spec, q, k).float()
+    scale = cfg.head_dim ** -0.5
+    if _overwritable(scores):
+        return softcap(scores.mul_(scale), cfg.attn_softcap, in_place=True)
+    return softcap(scores * scale, cfg.attn_softcap)
 
 
 def _attend(q, k, v, mask, cfg: ArchConfig):
     """q (B, Sq, H, hd); k/v (B, Sk, H, hd); mask broadcastable (B,1,Sq,Sk)."""
-    scale = cfg.head_dim ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    scores = softcap(scores, cfg.attn_softcap)
+    scores = _scores("bqhd,bkhd->bhqk", q, k, cfg)
     probs = _masked_softmax(scores, mask, q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -146,17 +174,15 @@ def _attend_chunked(q, k, v, cfg: ArchConfig, *, causal: bool,
     score tensor to (B, H, q_chunk, S) instead of (B, H, S, S).  Exact —
     each query row sees its full key range, so no running softmax is
     needed.  The reference's ``lax.map`` over chunks is a Python loop."""
-    B, S, H, hd = q.shape
+    S = q.shape[1]
     extra = (-S) % q_chunk
     if extra:
         q = pad(q, (0, 0, 0, 0, 0, extra))
-    scale = cfg.head_dim ** -0.5
     ki = torch.arange(S, device=q.device)[None, None, None, :]
     outs = []
     for start in range(0, S + extra, q_chunk):
-        qi = q[:, start:start + q_chunk]
-        scores = torch.einsum("bqhd,bkhd->bhqk", qi, k).float()
-        scores = softcap(scores * scale, cfg.attn_softcap)
+        scores = _scores("bqhd,bkhd->bhqk", q[:, start:start + q_chunk], k,
+                         cfg)
         if causal:
             qpos = (start + torch.arange(q_chunk, device=q.device))[
                 None, None, :, None]
@@ -293,9 +319,7 @@ def attention_local(p, x, cfg: ArchConfig, positions, *,
     kk = torch.cat([k_prev, kc], dim=2)                 # (B, nc, 2w, H, hd)
     vv = torch.cat([v_prev, vc], dim=2)
 
-    scale = hd ** -0.5
-    scores = torch.einsum("bnqhd,bnkhd->bnhqk", qc, kk).float() * scale
-    scores = softcap(scores, cfg.attn_softcap)
+    scores = _scores("bnqhd,bnkhd->bnhqk", qc, kk, cfg)
     qi = torch.arange(w, device=x.device)[:, None] + w  # within the 2w span
     ki = torch.arange(2 * w, device=x.device)[None, :]
     band = (ki <= qi) & (ki > qi - w)                   # causal, width w
@@ -374,10 +398,7 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     qg = q.reshape(B, 1, KV, M, hd)
     if not kv_sharded:
         qg = constrain(qg, "batch", None, None, None, None)
-    scale = hd ** -0.5
-    scores = torch.einsum("bqgmd,bsgd->bgmqs", qg,
-                          cache_k.to(x.dtype)).float() * scale
-    scores = softcap(scores, cfg.attn_softcap)
+    scores = _scores("bqgmd,bsgd->bgmqs", qg, cache_k.to(x.dtype), cfg)
     ki = torch.arange(S_ctx, device=x.device)[None, None, None, None, :]
     pm = pos_b[:, None, None, None, None]
     mask = (ki <= pm) | (pm >= S_ctx) if window else ki <= pm
@@ -434,6 +455,41 @@ def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return (capacity + 7) // 8 * 8
 
 
+class _Dispatch(torch.autograd.Function):
+    """The expert buffers ``where(valid, flat[g, slot_tok[g, s]], 0)``,
+    whose backward sums each token's K kept slots through the pair→slot
+    map ``safe_idx``, K terms in a fixed order, where the gather's own
+    backward scatter-adds them.  On CUDA a scatter-add sums with atomics in
+    whatever order the threads arrive, a bf16 rounding at each add, so two
+    runs of one training step part in the last bits and the parting grows
+    step by step; the reference's scatter-add on its device has a fixed
+    order.  A valid slot holds exactly one kept pair's token, so the two
+    backwards are the same sum."""
+
+    @staticmethod
+    def forward(ctx, flat, slot_tok, valid, safe_idx, kept):
+        G, n_slots = slot_tok.shape
+        D = flat.shape[-1]
+        ctx.save_for_backward(safe_idx, kept)
+        buffers = torch.gather(flat, 1, slot_tok[..., None]
+                               .expand(G, n_slots, D))
+        return torch.where(valid[..., None], buffers,
+                           torch.zeros((), dtype=flat.dtype,
+                                       device=flat.device))
+
+    @staticmethod
+    def backward(ctx, grad):
+        safe_idx, kept = ctx.saved_tensors
+        G, N, K = kept.shape
+        per_pair = torch.gather(grad, 1, safe_idx[..., None]
+                                .expand(G, N * K, grad.shape[-1]))
+        per_pair = torch.where(kept[..., None],
+                               per_pair.reshape(G, N, K, -1),
+                               torch.zeros((), dtype=grad.dtype,
+                                           device=grad.device))
+        return per_pair.sum(dim=2), None, None, None, None
+
+
 def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
         groups: int | None = None):
     """Mixture-of-experts with ticket-dispatch slot assignment; returns
@@ -451,7 +507,10 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
     ``"torch"`` the plain plan): everything from the router's softmax to
     the integer maps of the gathers.  The buffers are built by a D-wide
     gather through the plan's slot→token map: kept slots are unique by
-    construction, the ticket being a per-expert FIFO position.
+    construction, the ticket being a per-expert FIFO position.  Its
+    backward (:class:`_Dispatch`) sums each token's slots in a fixed
+    order, so a training step on the card gives the same bits run after
+    run.
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -464,10 +523,15 @@ def moe(p, x, cfg: ArchConfig, dispatch: str = "auto",
     # load-balancing aux loss (Switch/GShard style), over all tokens
     aux = aux_loss(plan, cfg.router_aux_weight)
 
-    buffers = torch.gather(flat, 1, plan["slot_tok"][..., None]
-                           .expand(G, E * capacity, D))
-    buffers = torch.where(plan["valid"][..., None], buffers,
-                          torch.zeros((), dtype=x.dtype, device=x.device))
+    if ambient_mesh() is None:
+        buffers = _Dispatch.apply(flat, plan["slot_tok"], plan["valid"],
+                                  plan["safe_idx"], plan["kept"])
+    else:   # the dry run records the reference's scatter-add
+        buffers = torch.gather(flat, 1, plan["slot_tok"][..., None]
+                               .expand(G, E * capacity, D))
+        buffers = torch.where(plan["valid"][..., None], buffers,
+                              torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
     buffers = constrain(buffers, "batch", None, None)
     buffers = buffers.reshape(G, E, capacity, D)
 

@@ -246,9 +246,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
 
     def leaf(path, shape, init):
         if init == "normal":
+            # the leaf before its float32 draw, which is scaled in place:
+            # the draw is the one temporary, and it frees a block of its
+            # own whole (a leaf cut from a freed draw's block would leave
+            # the rest of that block to smaller tensors only)
+            out = torch.empty(shape, dtype=dtype, device=device)
             w = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=device)
-            return (w * 0.02).to(dtype)
+            return out.copy_(w.mul_(0.02))
         if init == "a_log":
             n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
                              device=device)
@@ -481,7 +486,7 @@ def _logits(params, x, cfg: ArchConfig):
     x = L.rms_norm(params["final_norm"], x, cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", x, head).float()
-    logits = L.softcap(logits, cfg.logit_softcap)
+    logits = L.softcap(logits, cfg.logit_softcap, in_place=True)
     return _mask_pad_logits(logits, cfg)
 
 

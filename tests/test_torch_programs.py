@@ -220,6 +220,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.bench.serve_profile
         import repro_torch.bench.kernel_bounds
         import repro_torch.bench.kernel_pair
+        import repro_torch.bench.train_repeat
         import repro_torch.bench.common, repro_torch.bench.run
         import repro_torch.bench.fig1_invalidation_diameter
         import repro_torch.bench.fig2_interlock_interference
