@@ -14,7 +14,9 @@ engine (in bf16 and in float32), serving deepseek-7b, gemma3-1b and
 gemma2-27b at full width and depth and mistral-large-123b and grok-1-314b
 at full width, depth cut, training granite-moe-1b-a400m at full width on the paper's
 host-side locks (with and without the ticket kernel, with and without
-remat), training hubert-xlarge at full width and depth, qwen2-vl-72b's
+remat), training deepseek-7b (also with gradient accumulation), gemma3-1b,
+gemma2-27b, mistral-large-123b, falcon-mamba-7b and recurrentgemma-9b at
+full width, depth cut to about 2.5 B parameters, training hubert-xlarge at full width and depth, qwen2-vl-72b's
 vision frontend and M-RoPE at full width (4 layers), and the five example
 scripts — through the entry points a user calls, and checks them:
 
@@ -177,11 +179,30 @@ scripts — through the entry points a user calls, and checks them:
    ``remat="full"``), every loss bit-identical to the plain plan's; 6
    steps with ``remat="none"`` (every activation kept), every loss
    bit-identical, their time and peak memory beside the remat run's.
+11a. train_archs, one line an arch: ``repro_torch.launch.train.main`` on
+   deepseek-7b (8 of 30 layers, batch 8 × 512), gemma3-1b (all 26, 4 ×
+   1,024, past its window of 512), gemma2-27b (one local and one global
+   layer of 46, 1 × 4,160, past its window of 4,096), mistral-large-123b
+   (1 of 88, 8 × 512), falcon-mamba-7b (16 of 64, 8 × 512, the plain
+   selective scan under autograd) and recurrentgemma-9b (6 of 38, 2 ×
+   2,600, the plain RG-LRU loop and the window of 2,048), each at full
+   width in bf16 with float32 moments: 4 steps, every loss finite and step
+   0's within 10% of the start the init implies (``reckoned_start``; a
+   tied head's spike at each position's own token read from a forward
+   pass); ms a step after the first, tokens/s, the peak beside the
+   reckoning from the shapes (``reckon_train_bytes``), seconds; 2 more
+   steps of the same argv, losses bit-identical; deepseek-7b again with
+   ``--accum 2``, step 0 within ``TRAIN_LOSS_RTOL`` of the first run's,
+   every step printed beside it.  Then grok-1-314b's reckoning: one layer
+   at full width needs more than the card for its update.
 12. train_devices: reduced float32 granite-moe, falcon-mamba,
-   recurrentgemma, qwen2-vl (three distinct M-RoPE streams) and hubert
-   take 3 steps on the card and on the CPU from the same weights and
-   batches (the plain routing plan and scans under autograd): losses
-   within ``DEVICES_LOSS_RTOL``.
+   recurrentgemma, qwen2-vl (three distinct M-RoPE streams), hubert,
+   deepseek, gemma3, gemma2, mistral and grok-1 (E 4, top-2) take 3 steps
+   on the card and on the CPU from the same weights and batches (the
+   plain routing plan and scans under autograd), with ``accum_steps`` 1
+   and 2: losses within ``DEVICES_LOSS_RTOL``; granite and grok-1 again on
+   the card with ``use_pallas=True``: one ticket launch a MoE layer and
+   step, losses bit-identical to the plain dispatch's.
 13. train_hubert: ``repro_torch.launch.train.main`` on hubert-xlarge at
    full width and depth (48 layers, d 1,280, bidirectional, 504 classes,
    bf16, random weights from a seeded generator), batch 8 × 512 synthetic
@@ -239,8 +260,15 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# The caching allocator grows by segments that can be unmapped and
+# extended, unless the caller configured it: with fixed segments, a
+# training step of gemma2-27b (8.6 GB score blocks, 4.7 GB leaves of the
+# tied embedding) left 24-26 GiB reserved but free in pieces too small for
+# its next 4.4-8 GiB request with 50 GiB allocated (PERF.md §6).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet): HBM bandwidth, and the
 # 32-bit rate outside the tensor cores, used for the kernels' bounds.
@@ -331,11 +359,33 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_LOSS0_RTOL = 0.1
 # the train_devices phase: reduced float32 models, 3 steps on the card and
 # on the CPU from the same weights; losses within this relative tolerance
+# (granite and grok also with use_pallas=True on the card, and every arch
+# with accum_steps 1 and 2)
 VLM_ARCH = "qwen2-vl-72b"
 AUDIO_ARCH = "hubert-xlarge"
-DEVICES_ARCHS = (SERVE_ARCH, MAMBA_ARCH, GRIFFIN_ARCH, VLM_ARCH, AUDIO_ARCH)
+DEVICES_ARCHS = (SERVE_ARCH, MAMBA_ARCH, GRIFFIN_ARCH, VLM_ARCH, AUDIO_ARCH,
+                 "deepseek-7b", "gemma3-1b", "gemma2-27b",
+                 "mistral-large-123b", GROK_ARCH)
+DEVICES_PALLAS_ARCHS = (SERVE_ARCH, GROK_ARCH)
 DEVICES_STEPS = 3
 DEVICES_LOSS_RTOL = 1e-5
+# The train_archs phase: the decoders no phase above trains at full width,
+# through repro_torch.launch.train, bf16 with float32 moments, width uncut
+# and depth cut to about 2.5 B parameters (the update holds about 22 bytes
+# a parameter at its peak); a local layer's sequence passes its window.
+# arch: (layers run, None for all; batch; seq).  TRAIN_ARCHS_STEPS steps,
+# then TRAIN_ARCHS_REPEAT steps of the same argv, which must give the same
+# losses bit for bit; TRAIN_ACCUM_ARCH again with --accum 2.
+TRAIN_ARCHS = {
+    "deepseek-7b": (8, 8, 512),
+    "gemma3-1b": (None, 4, 1024),
+    "gemma2-27b": (2, 1, 4160),
+    "mistral-large-123b": (1, 8, 512),
+    "falcon-mamba-7b": (16, 8, 512),
+    "recurrentgemma-9b": (6, 2, 2600),
+}
+TRAIN_ARCHS_STEPS, TRAIN_ARCHS_REPEAT = 4, 2
+TRAIN_ACCUM_ARCH = "deepseek-7b"
 # The train_hubert phase: hubert-xlarge at full width and depth through
 # repro_torch.launch.train, with the config's remat ("full") and "none".
 AUDIO_BATCH, AUDIO_SEQ, AUDIO_STEPS = 8, 512, 6
@@ -2146,40 +2196,68 @@ def train_phase(dev, launch_train, ckpt, tree, ticket_kernel,
     return out
 
 
-def train_devices_phase(dev, model, train_step, optim, tree) -> dict:
-    """Reduced float32 models (granite-moe, falcon-mamba, recurrentgemma,
-    qwen2-vl with three distinct position streams, hubert) take
-    DEVICES_STEPS steps on the card and on the CPU from the same weights
-    and batches: the plain routing plan and scans under autograd on the
-    card agree with the CPU's within DEVICES_LOSS_RTOL."""
+def train_devices_phase(dev, model, train_step, optim, tree,
+                        ticket_kernel) -> dict:
+    """Reduced float32 models (DEVICES_ARCHS: granite-moe, falcon-mamba,
+    recurrentgemma, qwen2-vl with three distinct position streams, hubert,
+    deepseek, gemma3 and gemma2 past their window of 32, mistral, grok's
+    E 4 / top-2) take DEVICES_STEPS steps on the card and on the CPU from
+    the same weights and batches, with ``accum_steps`` 1 and 2: the plain
+    routing plan and scans under autograd on the card agree with the CPU's
+    within DEVICES_LOSS_RTOL.  DEVICES_PALLAS_ARCHS take the same steps on
+    the card with ``use_pallas=True``: the ticket kernel launched once a MoE
+    layer a pass (the reduced configs' remat is ``"none"``, one pass a
+    step; ``"full"`` adds the recompute's), the losses equal to the plain
+    dispatch's on the card bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic_batch
 
     out = {"phase": "train_devices", "loss_rtol": DEVICES_LOSS_RTOL,
            "archs": {}}
     t_phase = time.perf_counter()
+
+    def steps(cfg, weights, batches, device, options):
+        opt = optim.AdamW()
+        params = model.params_from_numpy(cfg, weights, device=device)
+        state = train_step.TrainState(params, opt.init(params))
+        step = train_step.build_train_step(cfg, opt, options)
+        run = []
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(device)
+                                    for k, v in b.items()})
+            run.append(float(m["loss"]))
+        return run
+
     for arch in DEVICES_ARCHS:
         cfg = get_config(arch).reduced()
         weights = tree.tree_map(lambda t: t.numpy(), model.init_params(
             cfg, torch.Generator().manual_seed(0), device="cpu"))
         batches = [frontend_batch(synthetic_batch, cfg, s, 4, 64)
                    for s in range(DEVICES_STEPS)]
-        losses = {}
-        for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            opt = optim.AdamW()
-            params = model.params_from_numpy(cfg, weights, device=device)
-            state = train_step.TrainState(params, opt.init(params))
-            step = train_step.build_train_step(cfg, opt)
-            run = []
-            for b in batches:
-                state, m = step(state, {k: torch.from_numpy(v).to(device)
-                                        for k, v in b.items()})
-                run.append(float(m["loss"]))
-            losses[label] = run
-        rel = [_rel(a, b) for a, b in zip(losses["card"], losses["cpu"])]
-        assert all(math.isfinite(x) for x in losses["card"]), losses
-        assert max(rel) <= DEVICES_LOSS_RTOL, (arch, losses)
-        out["archs"][arch] = {"losses": losses, "max_rel_diff": max(rel)}
+        line = out["archs"][arch] = {}
+        for accum in (1, 2):
+            options = train_step.TrainOptions(accum_steps=accum)
+            losses = {label: steps(cfg, weights, batches, device, options)
+                      for label, device in (("card", dev),
+                                            ("cpu", torch.device("cpu")))}
+            rel = [_rel(a, b) for a, b in zip(losses["card"],
+                                              losses["cpu"])]
+            assert all(math.isfinite(x) for x in losses["card"]), losses
+            assert max(rel) <= DEVICES_LOSS_RTOL, (arch, accum, losses)
+            line[f"accum{accum}"] = {"losses": losses,
+                                     "max_rel_diff": max(rel)}
+        if arch in DEVICES_PALLAS_ARCHS:
+            ticket_kernel.launches = 0
+            pallas = steps(cfg, weights, batches, dev,
+                           train_step.TrainOptions(use_pallas=True))
+            passes = 1 if cfg.remat == "none" else 2
+            n_moe = len(cfg.layer_kinds())
+            line["use_pallas"] = {"losses": pallas,
+                                  "ticket_launches": ticket_kernel.launches,
+                                  "moe_layers": n_moe, "passes": passes}
+            assert ticket_kernel.launches == n_moe * DEVICES_STEPS * passes, \
+                line["use_pallas"]
+            assert pallas == line["accum1"]["losses"]["card"], line
     out["dots_policy"] = {arch: dots_policy_probe(
         dev, model, get_config(arch).reduced())
         for arch in (SERVE_ARCH, "deepseek-7b")}
@@ -2285,14 +2363,209 @@ def train_hubert_phase(dev, launch_train, cfg, batch: int = AUDIO_BATCH,
     return out
 
 
-def random_init_loss(cfg) -> float:
-    """The cross entropy of random weights: the head's normal × 0.02
-    entries over unit-RMS features give logits of std σ = 0.02·sqrt(d),
-    and a softmax over V logits of std σ costs ln(V) + σ²/2 in expectation.
-    At qwen2-vl's d 8,192, σ²/2 = 1.64, so ln(V) alone is not the loss of
-    an untrained model there (at granite's or hubert's width it is within
-    5%)."""
-    return math.log(cfg.vocab) + (0.02 ** 2) * cfg.d_model / 2
+def reckoned_start(cfg, self_logits=None) -> float:
+    """The cross entropy that random weights start from.  Each head logit
+    is ĥ·w_v, ĥ the final norm's output (RMS 1 over d) and w_v's entries
+    normal × 0.02, so the vocab's logits have std σ = 0.02·sqrt(d), capped
+    where the config softcaps them, and V of them cost
+    ln(V·E[exp(cap(σz))]), z standard normal: ln(V) + σ²/2 uncapped,
+    12.36 at deepseek's d 4,096, 11.90 at falcon-mamba's, 12.85 at
+    mistral's 12,288 and 13.57 at qwen2-vl's 8,192, where ln(V) is 10.40
+    and 11.93 (at granite's or hubert's width within 5% of ln(V)).
+
+    A tied head (gemma3, gemma2, recurrentgemma) adds each position's own
+    token: its row is the embedding that entered the stack scaled by
+    sqrt(d), so its logit s_t = ĥ_t·e_tok is a spike of up to 0.02·d (92 at
+    gemma2's d 4,608, capped to 29.8) where the layers leave the embedding
+    dominant, and the start is the mean over positions of
+    ln(exp(s_t) + (V-1)·E[exp(cap(σz))]).  How far the random stack
+    dilutes the spike has no closed form: a gated MLP of width ff adds
+    ff·0.02²·E[act(az)²]·a² to the residual's variance (a² = 0.02²·d:
+    about 23 a layer at gemma2's 36,864 against the embedding's 1.84, 0.2
+    at gemma3's 6,912 against 0.46), and attention's component common to
+    all positions grows with depth (0.003 to 0.12 a layer over 24 layers
+    at d 1,024, a float32 probe at granite's width).  So ``self_logits``
+    (the s_t, from a forward pass of the same seeded weights and batch)
+    are read and the rest reckoned: the check is that the other V-1
+    logits, the softmax and the label's pick behave as random weights
+    predict."""
+    z, w = np.polynomial.hermite_e.hermegauss(80)
+    c, sigma = cfg.logit_softcap, 0.02 * math.sqrt(cfg.d_model)
+    capped = c * np.tanh(sigma * z / c) if c else sigma * z
+    bulk = float((w * np.exp(capped)).sum() / w.sum())
+    if self_logits is None:
+        return math.log(cfg.vocab * bulk)
+    s = np.asarray(self_logits, np.float64)
+    return float(np.mean(np.logaddexp(s, math.log((cfg.vocab - 1) * bulk))))
+
+
+def measured_self_logits(model, cfg, batch: dict, dev) -> np.ndarray:
+    """Each position's logit at its own input token, from a forward pass
+    (no autograd) of the weights ``launch.train`` makes for seed 0 on
+    ``dev`` over ``batch`` (numpy), in the training forward's modes."""
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    with torch.no_grad():
+        logits, _, _ = model.forward(params, {"tokens": tokens}, cfg,
+                                     dispatch="torch", scan="torch")
+        out = logits.gather(-1, tokens.long()[..., None])[..., 0]
+        out = out.double().cpu().numpy()
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _score_elements(kind: str, cfg, batch: int, seq: int,
+                    q_chunk: int) -> int:
+    """The elements of one attention layer's float32 scores over a
+    training step (all of a long sequence's query chunks of ``q_chunk``:
+    each is kept for the backward)."""
+    H = cfg.n_heads
+    if kind == "local" and seq > cfg.window:
+        w = cfg.window
+        return batch * H * -(-seq // w) * w * 2 * w
+    if kind == "global" and seq > 2 * q_chunk:
+        return batch * H * -(-seq // q_chunk) * q_chunk * seq
+    return batch * H * seq * seq
+
+
+def reckon_train_bytes(model, cfg, batch: int, seq: int,
+                       accum: int = 1) -> dict:
+    """A training step's peak device memory, reckoned from the shapes
+    before any run (bytes).  The state: the weights and their gradients in
+    their dtypes, the float32 moments.  The update's peak: the old and
+    new weights and moments beside the gradients (AdamW is functional:
+    about 22 bytes a bf16 parameter) and four float32 temporaries of a
+    slice of ``optim.adamw.UPDATE_CHUNK`` elements.  The backward's peak: the weights, moments and gradients,
+    the float32 sum of the microbatches' gradients under accumulation,
+    each period's checkpointed input, and the larger of the loss's and one
+    recomputed period's activations.  The loss keeps one float32 (B, S, V)
+    logits tensor (softcapped or not: ``layers._Softcap`` keeps its output,
+    which the logsumexp keeps too) and makes three more in its backward; a
+    period keeps, per attention layer, its float32 softmax and bf16
+    probabilities (softcapped or not: ``layers._CappedSoftmax``), about
+    twelve bf16 (B, S, d) and (B, S, H·hd) tensors, four (B, S, ff) of its
+    MLP, the Mamba loop's bf16 (B, d_inner, N) state and factor a token,
+    and the backward of its largest layer three float32 copies of that
+    layer's scores."""
+    from repro_torch.optim.adamw import UPDATE_CHUNK
+
+    leaves = _leaves(model.param_shapes(cfg))
+    dtypes = _leaves(model.param_dtypes(cfg))
+    n = [math.prod(s) for s in leaves]
+    P = sum(n)
+    weights = sum(k * torch.empty((), dtype=dt).element_size()
+                  for k, dt in zip(n, dtypes))
+    moments = 8 * P
+    update = 3 * weights + 2 * moments + 16 * min(max(n), UPDATE_CHUNK)
+    T = batch * seq // accum                   # tokens a microbatch
+    mb = batch // accum
+    d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    loss = (1 + 3) * T * cfg.padded_vocab * 4
+    kept, transient = 0, 0
+    for kind in cfg.layer_pattern:
+        if kind in ("global", "local"):
+            sc = _score_elements(kind, cfg, mb, seq, model.L.Q_CHUNK)
+            kept += sc * 6 + 12 * T * max(d, hd) * 2
+            transient = max(transient, 3 * 4 * sc)
+        elif kind == "mamba":
+            kept += 2 * T * cfg.d_inner * cfg.ssm_state * 2 \
+                + 12 * T * cfg.d_inner * 2
+        else:
+            kept += 12 * T * cfg.lru_width * 2
+        if kind != "mamba":
+            kept += 4 * T * cfg.d_ff * 2
+    backward = 2 * weights + moments + (4 * P if accum > 1 else 0) \
+        + cfg.n_periods * T * d * 2 + max(loss, kept + transient)
+    return {"params": P, "state": 2 * weights + moments, "update": update,
+            "backward": backward, "loss_activations": loss,
+            "period_activations": kept + transient,
+            "peak": max(update, backward)}
+
+
+def train_arch_phase(dev, launch_train, model, cfg, batch: int, seq: int,
+                     n_layers_config: int, accum: bool = False) -> dict:
+    """``cfg`` (full width, depth as given) through ``launch.train.main``:
+    TRAIN_ARCHS_STEPS steps of ``batch`` × ``seq`` synthetic tokens (seed 0,
+    the Prefetcher on the default TWA lock), losses finite and step 0's
+    within TRAIN_LOSS0_RTOL of :func:`reckoned_start`; the peak beside
+    :func:`reckon_train_bytes`; then TRAIN_ARCHS_REPEAT steps of the same
+    argv, whose losses equal the first run's bit for bit (every backward
+    sums in a fixed order); with ``accum`` the same steps with
+    ``--accum 2``, step 0's loss within TRAIN_LOSS_RTOL of the first
+    run's (only the microbatches' shape and the order of the float32
+    gradient sum differ)."""
+    from repro_torch.data import synthetic_batch
+
+    t0 = time.perf_counter()
+    reckoned = reckon_train_bytes(model, cfg, batch, seq)
+    out = {"phase": "train_archs", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "n_layers_config": n_layers_config,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "batch": batch, "seq": seq, "dtype": cfg.dtype,
+           "remat": cfg.remat, "window": cfg.window if "local" in
+           cfg.layer_kinds() else None,
+           "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()
+                           if k != "params"}}
+    self_logits = None
+    if cfg.tie_embeddings:
+        self_logits = measured_self_logits(
+            model, cfg, synthetic_batch(cfg, step=0, batch=batch, seq=seq),
+            dev)
+        out["self_logit_mean"] = float(self_logits.mean())
+    start = reckoned_start(cfg, self_logits)
+    out["reckoned_start"] = start
+    out["ln_vocab"] = math.log(cfg.vocab)
+    argv = ["--arch", cfg.name, "--batch", str(batch), "--seq", str(seq),
+            "--device", str(dev)]
+
+    def run(extra, name):
+        _, summary = timed_train(dev, launch_train, argv + extra, cfg)
+        summary.pop("log")
+        summary["tokens_per_s"] = batch * seq / summary[
+            "median_step_ms_after_first"] * 1e3
+        out[name] = summary
+        gc.collect()
+        torch.cuda.empty_cache()
+        return summary["losses"]
+
+    losses = run(["--steps", str(TRAIN_ARCHS_STEPS)], "run")
+    assert len(losses) == TRAIN_ARCHS_STEPS, losses
+    assert _rel(losses[0], start) <= TRAIN_LOSS0_RTOL, (losses[0], start)
+    out["peak_gb"] = out["run"]["peak_memory_gb"]
+    again = run(["--steps", str(TRAIN_ARCHS_REPEAT)], "repeat")
+    assert again == losses[:TRAIN_ARCHS_REPEAT], (again, losses)
+    if accum:
+        acc = run(["--steps", str(TRAIN_ARCHS_STEPS), "--accum", "2"],
+                  "accum2")
+        out["accum2"]["loss_beside_accum1"] = list(zip(acc, losses))
+        out["accum2"]["rel_diff"] = [_rel(a, b) for a, b in
+                                     zip(acc, losses)]
+        assert _rel(acc[0], losses[0]) <= TRAIN_LOSS_RTOL, (acc, losses)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def grok_train_reckoning(model, cfg) -> dict:
+    """Why grok-1-314b takes no training step at full width on one card:
+    one layer at its width (6,144; E 8 experts of d_ff 32,768) already
+    holds more state, weights and gradients in bf16 and float32 moments,
+    than the card has memory (its E 8 / top-2 backward is held at reduced
+    size by the train_devices phase)."""
+    one = dataclasses.replace(cfg, n_layers=1)
+    reckoned = reckon_train_bytes(model, one, 1, 128)
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"phase": "train_archs", "arch": cfg.name, "trained": False,
+           "n_layers_config": cfg.n_layers, "params_one_layer":
+           one.param_count(), "experts_params_one_layer":
+           3 * cfg.n_experts * cfg.d_model * cfg.d_ff,
+           "state_gb_one_layer": reckoned["state"] / 1e9,
+           "update_gb_one_layer": reckoned["update"] / 1e9,
+           "card_gb": card / 1e9}
+    assert reckoned["update"] > card, out
+    return out
 
 
 def frontends_phase(dev, model, synthetic_batch, cfg, batch: int = VLM_BATCH,
@@ -2300,7 +2573,7 @@ def frontends_phase(dev, model, synthetic_batch, cfg, batch: int = VLM_BATCH,
     """qwen2-vl (``cfg``, random weights from a seeded generator): a batch
     whose first quarter is the synthetic vision span with three distinct
     M-RoPE streams; ``loss_fn`` and its backward pass twice (the loss
-    within 10% of :func:`random_init_loss`, every gradient finite, the
+    within 10% of :func:`reckoned_start`, every gradient finite, the
     layers' non-zero);
     then, under ``torch.no_grad``, a prefill of all ``seq`` positions
     against a prefill of the first ``seq`` − 1 and one ``decode_step`` at
@@ -2349,7 +2622,7 @@ def frontends_phase(dev, model, synthetic_batch, cfg, batch: int = VLM_BATCH,
     for p in leaves:
         p.requires_grad_(False)
     out["passes"] = passes
-    out["expected_loss"] = random_init_loss(cfg)
+    out["expected_loss"] = reckoned_start(cfg)
     assert passes[0]["loss"] == passes[1]["loss"], passes
     assert math.isfinite(passes[0]["loss"]) and _rel(
         passes[0]["loss"], out["expected_loss"]) <= TRAIN_LOSS0_RTOL, passes
@@ -2915,8 +3188,19 @@ def main() -> int:
                         plan_kernel)
     emit(train)
 
+    # ---- 11a. the other decoders at full width, depth cut, and why grok-1
+    # takes no step at full width
+    for arch, (layers, batch, seq) in TRAIN_ARCHS.items():
+        acfg = get_config(arch)
+        emit(train_arch_phase(
+            dev, launch_train, model,
+            dataclasses.replace(acfg, n_layers=layers or acfg.n_layers),
+            batch, seq, acfg.n_layers, accum=arch == TRAIN_ACCUM_ARCH))
+    emit(grok_train_reckoning(model, get_config(GROK_ARCH)))
+
     # ---- 12. reduced models train alike on the card and on the CPU
-    emit(train_devices_phase(dev, model, train_step, optim, tree))
+    emit(train_devices_phase(dev, model, train_step, optim, tree,
+                             ticket_kernel))
 
     # ---- 13. train hubert-xlarge at full width and depth
     emit(train_hubert_phase(dev, launch_train, get_config(AUDIO_ARCH)))

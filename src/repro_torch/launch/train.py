@@ -5,10 +5,28 @@ A port of the reference's ``repro/launch/train.py``, with its command line
 and its ``[train]`` lines, plus ``--device`` (``cuda`` unless named; with
 no GPU and no device named it raises) and ``--use-pallas`` (the reference's
 ``TrainOptions.use_pallas``: every MoE layer's slots from the ticket-dispatch
-kernel).  CPU-runnable with reduced configs::
+kernel).  Every decoder of ``repro_torch.configs`` trains here on the CPU
+at reduced size (``--accum 2`` for gradient accumulation)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
         --reduced --device cpu --steps 4
+
+and likewise ``--arch`` deepseek-7b, gemma3-1b, gemma2-27b,
+mistral-large-123b, grok-1-314b, falcon-mamba-7b, recurrentgemma-9b,
+hubert-xlarge or qwen2-vl-72b.  On one H100 (80 GB) at full width in bf16
+with float32 moments, the archs trained on the card by ``chip_smoke.py``
+(layers run of the config's, batch × seq, peak device memory, ms a step;
+``NVIDIA H100 80GB HBM3, 700.00 W``): granite-moe-1b-a400m all 24, 8 ×
+512, 31.8 GB; hubert-xlarge all 48, 8 × 512 frames, 30.1 GB; and, the
+depth cut in the config to about 2.5 B parameters: deepseek-7b 8 of 30,
+8 × 512, 56.5 GB, 378 ms (also ``--accum 2``); gemma3-1b all 26, 4 ×
+1,024, 32.6 GB, 381 ms; gemma2-27b 2 of 46, 1 × 4,160, 65.0 GB, 698 ms;
+mistral-large-123b 1 of 88, 8 × 512, 50.6 GB, 279 ms; falcon-mamba-7b 16
+of 64, 8 × 512, 51.2 GB, 13.9 s; recurrentgemma-9b 6 of 38, 2 × 2,600,
+53.7 GB, 4.4 s (both through their plain scans: no kernel has a backward
+pass).  The update holds about 22 bytes a parameter (the old and new
+parameters and float32 moments beside the gradients), so grok-1-314b,
+6.53 B parameters a layer, trains on one card only reduced.
 
 The batches come from the Prefetcher, whose ring buffer is guarded by the
 paper's lock (``core.make_lock``: TWA unless ``$REPRO_LOCK`` names another);

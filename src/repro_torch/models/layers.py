@@ -96,14 +96,44 @@ def _overwritable(t) -> bool:
                                            and t.requires_grad)
 
 
+def _recorded(t) -> bool:
+    """Whether autograd records ops on ``t`` outside any mesh."""
+    return ambient_mesh() is None and torch.is_grad_enabled() and \
+        t.requires_grad
+
+
+class _Softcap(torch.autograd.Function):
+    """cap · tanh(x / cap), keeping only its output y for the backward
+    pass, whose derivative is 1 - (y / cap)²: autograd's own ops keep
+    tanh's output too, a second float32 copy beside y wherever y is kept
+    (the loss's logsumexp keeps the capped logits).  The forward's bits
+    are those ops'."""
+
+    @staticmethod
+    def forward(ctx, x, cap):
+        y = torch.div(x, cap).tanh_().mul_(cap)
+        ctx.cap = cap
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, = ctx.saved_tensors
+        slope = torch.div(y, ctx.cap).square_().neg_().add_(1.0)
+        return slope.mul_(grad), None
+
+
 def softcap(x, cap: float, in_place: bool = False):
     """cap · tanh(x / cap), or x for cap 0.  ``in_place``: x is a fresh
     tensor nothing else reads, computed on in place where
-    :func:`_overwritable` allows; the same bits either way."""
+    :func:`_overwritable` allows; where autograd records it outside a
+    mesh, :class:`_Softcap`; the same bits every way."""
     if not cap:
         return x
     if in_place and _overwritable(x):
         return x.div_(cap).tanh_().mul_(cap)
+    if _recorded(x):
+        return _Softcap.apply(x, cap)
     return cap * torch.tanh(x / cap)
 
 
@@ -140,21 +170,60 @@ def _masked_softmax(scores, mask, dtype, split: bool = False,
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
+class _CappedSoftmax(torch.autograd.Function):
+    """The softmax over the last dim of cap · tanh(s / cap), masked to
+    -1e30 where ``mask`` is False, for float32 scores s, keeping one
+    float32 tensor of the scores' size for the backward pass: the
+    probabilities p, with each row's logsumexp.  The capped score y that
+    tanh's derivative 1 - (y / cap)² needs is log p + lse wherever p > 0
+    (where p is 0 its gradient is too).  Autograd's own ops keep tanh's
+    output beside the softmax's, two float32 copies of the scores.  The
+    forward's bits are those ops'."""
+
+    @staticmethod
+    def forward(ctx, scores, cap, mask):
+        y = torch.div(scores, cap).tanh_().mul_(cap).masked_fill_(
+            ~mask, NEG_INF)
+        lse = torch.logsumexp(y, dim=-1, keepdim=True)
+        p = torch.softmax(y, dim=-1, out=y)
+        ctx.cap = cap
+        ctx.save_for_backward(p, lse, mask)
+        return p
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, lse, mask = ctx.saved_tensors
+        g = grad * p
+        g.addcmul_(p, g.sum(dim=-1, keepdim=True), value=-1.0)
+        slope = torch.log(p).add_(lse).div_(ctx.cap).square_().neg_().add_(
+            1.0).masked_fill_(p == 0, 0.0)
+        return g.mul_(slope).masked_fill_(~mask, 0.0), None, None
+
+
 def _scores(spec: str, q, k, cfg: ArchConfig):
-    """Float32 attention scores ``einsum(spec, q, k)`` × head_dim^-0.5,
-    softcapped by ``cfg.attn_softcap``: in place where
-    :func:`_overwritable` allows (the same bits)."""
+    """Float32 attention scores ``einsum(spec, q, k)`` × head_dim^-0.5: in
+    place where :func:`_overwritable` allows (the same bits)."""
     scores = torch.einsum(spec, q, k).float()
     scale = cfg.head_dim ** -0.5
-    if _overwritable(scores):
-        return softcap(scores.mul_(scale), cfg.attn_softcap, in_place=True)
-    return softcap(scores * scale, cfg.attn_softcap)
+    return scores.mul_(scale) if _overwritable(scores) else scores * scale
+
+
+def _probs(scores, mask, cfg: ArchConfig, dtype, split: bool = False,
+           in_place: bool = False):
+    """Scaled float32 scores (a fresh tensor) -> probabilities in
+    ``dtype``: softcapped by ``cfg.attn_softcap``, then
+    :func:`_masked_softmax` (``split``, ``in_place``); where autograd
+    records a softcapped pass outside a mesh, :class:`_CappedSoftmax`."""
+    if cfg.attn_softcap and _recorded(scores):
+        return _CappedSoftmax.apply(scores, cfg.attn_softcap, mask).to(dtype)
+    return _masked_softmax(softcap(scores, cfg.attn_softcap, in_place=True),
+                           mask, dtype, split, in_place)
 
 
 def _attend(q, k, v, mask, cfg: ArchConfig):
     """q (B, Sq, H, hd); k/v (B, Sk, H, hd); mask broadcastable (B,1,Sq,Sk)."""
     scores = _scores("bqhd,bkhd->bhqk", q, k, cfg)
-    probs = _masked_softmax(scores, mask, q.dtype)
+    probs = _probs(scores, mask, cfg, q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -189,7 +258,7 @@ def _attend_chunked(q, k, v, cfg: ArchConfig, *, causal: bool,
             mask = ki <= qpos
         else:
             mask = torch.ones_like(scores, dtype=torch.bool)
-        probs = _masked_softmax(scores, mask, q.dtype, in_place=True)
+        probs = _probs(scores, mask, cfg, q.dtype, in_place=True)
         del scores                      # no chunk's scores outlive it
         outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v))
         del probs
@@ -325,7 +394,7 @@ def attention_local(p, x, cfg: ArchConfig, positions, *,
     band = (ki <= qi) & (ki > qi - w)                   # causal, width w
     first = torch.arange(nc, device=x.device)[:, None, None] == 0
     valid = band[None] & ~(first & (ki < w)[None])      # chunk 0: no prev
-    probs = _masked_softmax(scores, valid[:, None], q.dtype, in_place=True)
+    probs = _probs(scores, valid[:, None], cfg, q.dtype, in_place=True)
     del scores
     out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, vv)
     out = out.reshape(B, Sp, H, hd)[:, :S]
@@ -402,8 +471,8 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     ki = torch.arange(S_ctx, device=x.device)[None, None, None, None, :]
     pm = pos_b[:, None, None, None, None]
     mask = (ki <= pm) | (pm >= S_ctx) if window else ki <= pm
-    probs = _masked_softmax(scores, mask, x.dtype,
-                            split=model_size > 1 and not kv_sharded)
+    probs = _probs(scores, mask, cfg, x.dtype,
+                   split=model_size > 1 and not kv_sharded)
     out = torch.einsum("bgmqs,bsgd->bqgmd", probs, cache_v.to(x.dtype))
     out = out.reshape(B, 1, H, hd)
     return (_residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), cache_k,

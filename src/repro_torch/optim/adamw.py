@@ -22,6 +22,13 @@ Pytree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# Elements of a leaf updated at a time.  The update's float32 temporaries
+# (the scaled gradient, the bias-corrected moments, the step) then stay
+# this size where a whole leaf's would sit beside the old and new state:
+# four 4.7 GB copies for gemma2-27b's tied embedding, as the reference's
+# jitted update, a fused loop a leaf, holds none.
+UPDATE_CHUNK = 1 << 26
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor      # () int32
@@ -64,7 +71,7 @@ class AdamW:
 
         mdt = _DTYPES[self.moment_dtype]
 
-        def upd(g, m, v, p):
+        def part(g, m, v, p):
             g32 = g.to(torch.float32) * scale
             m2 = self.b1 * m.to(torch.float32) + (1 - self.b1) * g32
             v2 = self.b2 * v.to(torch.float32) + (1 - self.b2) * \
@@ -78,6 +85,24 @@ class AdamW:
                 delta = delta + self.weight_decay * p.to(torch.float32)
             return ((p.to(torch.float32) - lr * delta).to(p.dtype),
                     m2.to(mdt), v2.to(mdt))
+
+        def upd(g, m, v, p):
+            """``part`` over the whole leaf, or over slices of
+            UPDATE_CHUNK elements written into the new leaves (a plain
+            tensor past that size; the same bits: every op is
+            elementwise)."""
+            n = p.numel()
+            if n <= UPDATE_CHUNK or type(p) is not torch.Tensor:
+                return part(g, m, v, p)
+            outs = (torch.empty_like(p),
+                    torch.empty(p.shape, dtype=mdt, device=p.device),
+                    torch.empty(p.shape, dtype=mdt, device=p.device))
+            flat = [t.reshape(-1) for t in (g, m, v, p)]
+            for s in range(0, n, UPDATE_CHUNK):
+                done = part(*(t[s:s + UPDATE_CHUNK] for t in flat))
+                for o, d in zip(outs, done):
+                    o.view(-1)[s:s + UPDATE_CHUNK].copy_(d)
+            return outs
 
         out = tree_map(upd, grads, state.m, state.v, params)
         # out's leaves are upd's tuples; the walk follows grads' structure

@@ -59,10 +59,10 @@ def _ref_tree(arch):
     return jax.tree.map(np.asarray, init(rcfg, jax.random.PRNGKey(0)))
 
 
-def _setup(arch, step=0):
+def _setup(arch, step=0, seq=SEQ):
     """(port cfg, ref cfg, numpy params, numpy batch)."""
     cfg, rcfg = get_config(arch).reduced(), ref_config(arch).reduced()
-    batch = synthetic_batch(rcfg, step=step, batch=BATCH, seq=SEQ)
+    batch = synthetic_batch(rcfg, step=step, batch=BATCH, seq=seq)
     return cfg, rcfg, _ref_tree(arch), batch
 
 
@@ -72,7 +72,14 @@ def _port_batch(batch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_the_reference(arch):
-    cfg, rcfg, tree, batch = _setup(arch)
+    check_loss_and_grads(arch)
+
+
+def check_loss_and_grads(arch: str, seq: int = SEQ) -> None:
+    """The port's loss, metrics and every gradient leaf against the
+    reference's ``jax.value_and_grad(loss_fn)`` on one batch of ``seq``
+    tokens, within LOSS_TOL and GRAD_RTOL/GRAD_ATOL."""
+    cfg, rcfg, tree, batch = _setup(arch, seq=seq)
     (r_loss, r_m), r_grads = jax.jit(jax.value_and_grad(
         functools.partial(RM.loss_fn, cfg=rcfg), has_aux=True))(
         jax.tree.map(jnp.asarray, tree),

@@ -53,12 +53,12 @@ def _ref_tree(arch):
     return jax.tree.map(np.asarray, init(rcfg, jax.random.PRNGKey(0)))
 
 
-def check_steps(arch: str, accum: int) -> None:
-    """STEPS steps in both packages from the same state and batches; the
-    metrics of each step within STEP_TOL."""
+def check_steps(arch: str, accum: int, seq: int = SEQ) -> None:
+    """STEPS steps of BATCH × ``seq`` tokens in both packages from the same
+    state and batches; the metrics of each step within STEP_TOL."""
     cfg, rcfg = get_config(arch).reduced(), ref_config(arch).reduced()
     tree = _ref_tree(arch)
-    batches = [synthetic_batch(rcfg, step=s, batch=BATCH, seq=SEQ)
+    batches = [synthetic_batch(rcfg, step=s, batch=BATCH, seq=seq)
                for s in range(STEPS)]
 
     ropt = RefAdamW()
