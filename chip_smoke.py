@@ -173,8 +173,8 @@ scripts — through the entry points a user calls, and checks them:
    the checkpoints' bytes and seconds; the last checkpoint restored bit for
    bit; a run resumed from step 3 (its losses bit-identical to the
    uninterrupted run's: the MoE backward sums in a fixed order, so a step
-   on the card repeats itself); 3 steps with ``--use-pallas``, the ticket
-   kernel launched twice a MoE layer and step (144: the forward, and the
+   on the card repeats itself); 4 steps with ``--use-pallas``, the ticket
+   kernel launched twice a MoE layer and step (192: the forward, and the
    backward pass's recompute of each period under the config's
    ``remat="full"``), every loss bit-identical to the plain plan's; 6
    steps with ``remat="none"`` (every activation kept), every loss
@@ -183,7 +183,7 @@ scripts — through the entry points a user calls, and checks them:
    deepseek-7b (8 of 30 layers, batch 8 × 512), gemma3-1b (all 26, 4 ×
    1,024, past its window of 512), gemma2-27b (one local and one global
    layer of 46, 1 × 4,160, past its window of 4,096), mistral-large-123b
-   (1 of 88, 8 × 512), falcon-mamba-7b (16 of 64, 8 × 512, the plain
+   (1 of 88, 8 × 512), falcon-mamba-7b (8 of 64, 8 × 512, the plain
    selective scan under autograd) and recurrentgemma-9b (6 of 38, 2 ×
    2,600, the plain RG-LRU loop and the window of 2,048), each at full
    width in bf16 with float32 moments: 4 steps, every loss finite and step
@@ -195,6 +195,30 @@ scripts — through the entry points a user calls, and checks them:
    ``--accum 2``, step 0 within ``TRAIN_LOSS_RTOL`` of the first run's,
    every step printed beside it.  Then grok-1-314b's reckoning: one layer
    at full width needs more than the card for its update.
+11b. entry_points: the launchers as a user starts them, each in a child
+   process (``sys.executable``, PYTHONPATH=src) of a clean environment:
+   no ``PYTORCH_CUDA_ALLOC_CONF`` (this script sets one when imported),
+   no ``REPRO_*`` variable, nothing of this script imported.  granite's
+   ``launch.train`` command line, 4 steps at 8 × 512, plain and with
+   ``--use-pallas``: losses bit-identical to phase 11's runs, as many
+   ticket launches.  gemma2-27b at phase 11a's cut (2 of 46 layers, 1 ×
+   4,160), which trains only with the launchers' allocator default
+   (expandable segments): losses bit-identical to phase 11a's, peak within
+   1% of it; then the same child with ``expandable_segments:False`` set by
+   the caller, left alone by the launcher, whose outcome (out of memory or
+   not) is recorded.  granite's ``launch.serve`` command line (8 requests,
+   4 lanes): every request's tokens equal to those of the same argv
+   through ``launch.serve.main`` in this process, whose routing-plan
+   launches are counted, and as many in the child.
+11c. train_chunked, one line an arch: falcon-mamba-7b and
+   recurrentgemma-9b at phase 11a's cut through ``launch.train``'s command
+   line in a child as in 11b, with the reference's ``$REPRO_SCAN_CHUNK``
+   set in its environment (Lc 64; 130, since 2,600 = 20 × 130): every scan
+   the chunked form (calls counted in the child, one a recurrent layer and
+   pass, none of the sequential loop), losses finite, step 0 within 10%
+   of the reckoned start and within ``TRAIN_LOSS_RTOL`` of phase 11a's
+   sequential run, 2 more steps in the same child bit-identical; ms a
+   step, tokens/s and the peak beside the reckoning of the chunked scans.
 12. train_devices: reduced float32 granite-moe, falcon-mamba,
    recurrentgemma, qwen2-vl (three distinct M-RoPE streams), hubert,
    deepseek, gemma3, gemma2, mistral and grok-1 (E 4, top-2) take 3 steps
@@ -231,7 +255,9 @@ scripts — through the entry points a user calls, and checks them:
    tensors over a fake process group on the host's CPU: GiB a device,
    product FLOPs and collective bytes beside the reference dry run's
    (constants: the card's host has no JAX), the four roofline terms, the
-   dominant one, wall seconds.  Then the
+   dominant one, wall seconds.  These dry runs use no card: they run in a
+   child process with none visible, started before phase 1, beside the
+   phases on the card (one host core of the eight).  Then the
    one-device roofline (1×1 mesh, no card time) of phase 11's step (batch
    8 × seq 512, with the config's remat and with ``"none"``): its bound
    may not exceed the measured ms a step, and ``train_mfu`` = model FLOPs
@@ -245,6 +271,7 @@ exits non-zero.  Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -264,7 +291,11 @@ from pathlib import Path
 # extended, unless the caller configured it: with fixed segments, a
 # training step of gemma2-27b (8.6 GB score blocks, 4.7 GB leaves of the
 # tied embedding) left 24-26 GiB reserved but free in pieces too small for
-# its next 4.4-8 GiB request with 50 GiB allocated (PERF.md §6).
+# its next 4.4-8 GiB request with 50 GiB allocated (PERF.md §6).  The
+# launchers set the same default themselves (``repro_torch.device.
+# default_allocator``); this line stays for the phases that build a
+# ServeEngine or a train step directly, in this process, without a launcher.
+# The entry_points phase's children start without it.
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
@@ -310,7 +341,10 @@ SERVE_ARCHS = {
 
 FIG3_THREADS = (1, 2, 4, 8, 16, 32, 64)
 TIMO_THREADS = (1, 2, 4, 8, 16, 32)  # gen_twa_timo_acquire: T <= 32
-CHECK_HORIZON = 10_000
+# the fig3 cells' horizon in phase 2, where the plain engine takes several
+# ms an event step (at 10,000 it took 60 s of the phase: cut so that the
+# whole script keeps its time limit beside the entry_points children)
+CHECK_HORIZON = 4_000
 FIG3_ROWS = 13 * len(FIG3_THREADS) * 3 + len(TIMO_THREADS) * 3   # 291
 FUZZ_CASES = 1024
 CLAIMS_HORIZON = 800_000
@@ -349,7 +383,7 @@ ADMISSION_RATIOS = ("admission/grant_polls_ticket_over_twa",
 # resumed from it; then TRAIN_PALLAS_STEPS steps through the ticket kernel.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
 TRAIN_CKPT_EVERY = 3
-TRAIN_PALLAS_STEPS = 3
+TRAIN_PALLAS_STEPS = 4
 # |loss - loss of the same step in another run| / loss, for hubert's steps
 # after a backward pass on the card (its remat and plain runs sum in other
 # orders): a step moves the loss by about 2e-3 of itself.  Granite's runs
@@ -373,6 +407,9 @@ DEVICES_LOSS_RTOL = 1e-5
 # through repro_torch.launch.train, bf16 with float32 moments, width uncut
 # and depth cut to about 2.5 B parameters (the update holds about 22 bytes
 # a parameter at its peak); a local layer's sequence passes its window.
+# falcon-mamba-7b runs 8 of its 64 layers (1.4 B parameters): its plain
+# loop takes one token at a time, 14-19 s a step at 16 layers, and the
+# train_chunked lines run the same cut again.
 # arch: (layers run, None for all; batch; seq).  TRAIN_ARCHS_STEPS steps,
 # then TRAIN_ARCHS_REPEAT steps of the same argv, which must give the same
 # losses bit for bit; TRAIN_ACCUM_ARCH again with --accum 2.
@@ -381,11 +418,29 @@ TRAIN_ARCHS = {
     "gemma3-1b": (None, 4, 1024),
     "gemma2-27b": (2, 1, 4160),
     "mistral-large-123b": (1, 8, 512),
-    "falcon-mamba-7b": (16, 8, 512),
+    "falcon-mamba-7b": (8, 8, 512),
     "recurrentgemma-9b": (6, 2, 2600),
 }
 TRAIN_ARCHS_STEPS, TRAIN_ARCHS_REPEAT = 4, 2
 TRAIN_ACCUM_ARCH = "deepseek-7b"
+# The entry_points phase: the launchers as a user starts them, each in a
+# child process of a clean environment (no allocator setting, no REPRO_*
+# variable, PYTHONPATH=src), held to this process's runs of the same argv:
+# granite's train (plain and --use-pallas) and serve through the command
+# line, gemma2-27b at TRAIN_ARCHS' cut, and that gemma2 run again with
+# fixed segments set by the caller (the control: recorded, not a gate).
+# A child's peak within ENTRY_PEAK_RTOL of the in-process run's.
+ENTRY_TRAIN_STEPS = 4
+ENTRY_SERVE_ARGV = ["--arch", SERVE_ARCH, "--requests", "8", "--lanes", "4",
+                    "--max-ctx", "128", "--max-new", "8"]
+ENTRY_GEMMA2 = "gemma2-27b"
+ENTRY_PEAK_RTOL = 0.01
+CHILD_TIMEOUT_S = 600
+# The train_chunked phase: falcon-mamba-7b and recurrentgemma-9b at
+# TRAIN_ARCHS' cut in a child under the reference's $REPRO_SCAN_CHUNK
+# (its hillclimb sets 64 and 128; 128 does not divide 2,600 = 20 × 130, so
+# recurrentgemma takes 130): arch -> Lc.
+TRAIN_SCAN_CHUNK = {MAMBA_ARCH: 64, GRIFFIN_ARCH: 130}
 # The train_hubert phase: hubert-xlarge at full width and depth through
 # repro_torch.launch.train, with the config's remat ("full") and "none".
 AUDIO_BATCH, AUDIO_SEQ, AUDIO_STEPS = 8, 512, 6
@@ -2432,7 +2487,7 @@ def _score_elements(kind: str, cfg, batch: int, seq: int,
 
 
 def reckon_train_bytes(model, cfg, batch: int, seq: int,
-                       accum: int = 1) -> dict:
+                       accum: int = 1, scan_chunk: int = 0) -> dict:
     """A training step's peak device memory, reckoned from the shapes
     before any run (bytes).  The state: the weights and their gradients in
     their dtypes, the float32 moments.  The update's peak: the old and
@@ -2449,7 +2504,13 @@ def reckon_train_bytes(model, cfg, batch: int, seq: int,
     twelve bf16 (B, S, d) and (B, S, H·hd) tensors, four (B, S, ff) of its
     MLP, the Mamba loop's bf16 (B, d_inner, N) state and factor a token,
     and the backward of its largest layer three float32 copies of that
-    layer's scores."""
+    layer's scores.  Under ``$REPRO_SCAN_CHUNK`` (``scan_chunk``) a Mamba
+    layer's chunked scan keeps four float32 (B, L, d_inner, N) tensors
+    instead (each step's decay and state, the running decay and the carry
+    factors E) and holds three more while it runs (its inputs z and b and
+    the factors before they are stacked); an RG-LRU layer's keeps four
+    float32 (B, L, lru_width) tensors (the decays, states, running products
+    and their stack)."""
     from repro_torch.optim.adamw import UPDATE_CHUNK
 
     leaves = _leaves(model.param_shapes(cfg))
@@ -2471,10 +2532,14 @@ def reckon_train_bytes(model, cfg, batch: int, seq: int,
             kept += sc * 6 + 12 * T * max(d, hd) * 2
             transient = max(transient, 3 * 4 * sc)
         elif kind == "mamba":
-            kept += 2 * T * cfg.d_inner * cfg.ssm_state * 2 \
+            bldn = T * cfg.d_inner * cfg.ssm_state
+            kept += (4 * bldn * 4 if scan_chunk else 2 * bldn * 2) \
                 + 12 * T * cfg.d_inner * 2
+            if scan_chunk:
+                transient = max(transient, 3 * bldn * 4)
         else:
-            kept += 12 * T * cfg.lru_width * 2
+            kept += 12 * T * cfg.lru_width * 2 \
+                + (4 * T * cfg.lru_width * 4 if scan_chunk else 0)
         if kind != "mamba":
             kept += 4 * T * cfg.d_ff * 2
     backward = 2 * weights + moments + (4 * P if accum > 1 else 0) \
@@ -2565,6 +2630,278 @@ def grok_train_reckoning(model, cfg) -> dict:
            "update_gb_one_layer": reckoned["update"] / 1e9,
            "card_gb": card / 1e9}
     assert reckoned["update"] > card, out
+    return out
+
+
+# A child of the entry_points and train_chunked phases: the launcher's
+# main() run with sys.argv as ``python -m repro_torch.launch.<launcher>``
+# sets it (no allocator setting or CUDA call before it), once a command
+# line of ``spec["runs"]``, and one JSON line last on stdout: each run's
+# losses or tokens, step seconds, peak memory, the allocator's segments and
+# how many are expandable, the kernels' launches and (``count_scans``) the
+# calls of the plain scans.  ``layers`` cuts the config's depth as
+# ``configured`` does; ``record_oom`` reports a run out of memory instead
+# of failing.  It imports nothing of this script.
+CHILD_PROGRAM = r'''
+import dataclasses, gc, json, os, sys, time
+spec = json.loads(sys.argv.pop(1))
+import torch
+from repro_torch.configs import get_config
+from repro_torch.kernels.ticket_dispatch import kernel as ticket, plan
+from repro_torch.launch import serve, train
+launcher = {"train": train, "serve": serve}[spec["launcher"]]
+if spec.get("layers"):
+    cut = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    launcher.get_config = lambda name: cut if name == cut.name \
+        else get_config(name)
+scans = {}
+if spec.get("count_scans"):
+    from repro_torch.kernels.mamba_scan import ops as mamba_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    for ops, name in ((mamba_ops, "selective_scan_chunked"),
+                      (mamba_ops, "selective_scan_ref"),
+                      (rglru_ops, "rglru_scan_chunked"),
+                      (rglru_ops, "rglru_scan_ref")):
+        def counted(*args, _real=getattr(ops, name), _name=name, **kw):
+            scans[_name] = scans.get(_name, 0) + 1
+            return _real(*args, **kw)
+        setattr(ops, name, counted)
+runs = []
+for argv in spec["runs"]:
+    sys.argv = ["python -m repro_torch.launch." + spec["launcher"], *argv]
+    if torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()
+    ticket.launches = plan.launches = 0
+    scans.clear()
+    run = {"argv": argv}
+    t0 = time.perf_counter()
+    try:
+        res = launcher.main()
+    except torch.OutOfMemoryError as e:
+        if not spec.get("record_oom"):
+            raise
+        run["out_of_memory"] = str(e)[:600]
+        res = None
+    run["seconds"] = time.perf_counter() - t0
+    if res and spec["launcher"] == "train":
+        run.update(losses=res["losses"], step_seconds=res["step_seconds"])
+    elif res:
+        run.update(tokens_out=[r.tokens_out for r in res["requests"]],
+                   engine_steps=res["stats"]["steps"])
+    if torch.cuda.is_initialized():
+        segments = torch.cuda.memory_snapshot()
+        run.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   segments=len(segments),
+                   expandable_segments=sum(bool(s.get("is_expandable"))
+                                           for s in segments))
+    run.update(ticket_launches=ticket.launches, plan_launches=plan.launches,
+               scans=dict(scans))
+    runs.append(run)
+    del res
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+print(json.dumps({"child": {
+    "runs": runs, "torch": torch.__version__,
+    "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF")}}))
+'''
+
+
+def child_env(extra: dict | None = None) -> dict:
+    """A clean environment for a child: this process's without the
+    allocator's settings (this script sets one when it is imported) and
+    without the repo's own ``REPRO_*`` variables, with PYTHONPATH=src;
+    then ``extra``."""
+    from repro_torch.device import ALLOC_CONF_VARS
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ALLOC_CONF_VARS and not k.startswith("REPRO_")}
+    env["PYTHONPATH"] = "src"
+    env.update(extra or {})
+    return env
+
+
+def run_child(root: Path, spec: dict, extra_env: dict | None = None,
+              timeout: float = CHILD_TIMEOUT_S) -> dict:
+    """``CHILD_PROGRAM`` on ``spec`` in a child process started from the
+    repo's root in :func:`child_env`; its JSON result with the wall seconds
+    of the process.  A child that fails raises, with its stderr's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_PROGRAM, json.dumps(spec)], cwd=root,
+        env=child_env(extra_env), capture_output=True, text=True,
+        timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"child {spec} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1])["child"]
+    out.update(process_seconds=time.perf_counter() - t0,
+               env=extra_env or {}, log_tail=lines[-4:-1])
+    return out
+
+
+def _release(dev) -> float:
+    """Give this process's cached device memory back before a child runs:
+    the GB it still reserves."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev) / 1e9
+
+
+def _train_summary(run: dict, tokens: int) -> dict:
+    """A child's train run with the median step after the first and
+    tokens/s, as ``timed_train`` summarises one in this process."""
+    ms = float(np.median(run["step_seconds"][1:])) * 1e3
+    return {**run, "median_step_ms_after_first": ms,
+            "tokens_per_s": tokens / ms * 1e3}
+
+
+def entry_points_phase(root: Path, dev, launch_serve, plan_kernel,
+                       train: dict, gemma2: dict) -> dict:
+    """The launchers as a user starts them, each in a child process of a
+    clean environment (:func:`child_env`: no allocator setting), held to
+    this process's runs of the same argv.  granite-moe-1b-a400m through
+    ``launch.train``'s command line, ENTRY_TRAIN_STEPS steps plain and with
+    ``--use-pallas``: losses bit-identical to the train phase's runs, the
+    ticket kernel launched as often.  gemma2-27b at TRAIN_ARCHS' cut
+    (``gemma2``: its train_archs line): its losses bit-identical to that
+    run's and its peak within ENTRY_PEAK_RTOL of it, which it reaches only
+    with the launchers' default, expandable segments (PERF.md §6);
+    then the control, the same child with fixed segments set by the caller:
+    the launcher leaves that value alone, and whether the run fits is
+    recorded, not held.  granite's serve through ``launch.serve``'s command
+    line: every request's tokens equal those of the same argv through
+    ``launch.serve.main`` here, where the routing-plan kernel's launches
+    are counted (and in the child, as many)."""
+    t_phase = time.perf_counter()
+    out = {"phase": "entry_points", "python": sys.executable,
+           "pythonpath": "src", "removed": "PYTORCH_ALLOC_CONF, "
+           "PYTORCH_CUDA_ALLOC_CONF, REPRO_*"}
+    base = ["--arch", SERVE_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(ENTRY_TRAIN_STEPS)]
+    assert TRAIN_PALLAS_STEPS == ENTRY_TRAIN_STEPS <= TRAIN_STEPS
+    for name, extra, inproc in (("train", [], "plain"),
+                                ("train_use_pallas", ["--use-pallas"],
+                                 "use_pallas")):
+        reserved = _release(dev)
+        child = run_child(root, {"launcher": "train", "runs": [base + extra]})
+        run = _train_summary(child.pop("runs")[0], TRAIN_BATCH * TRAIN_SEQ)
+        want = train[inproc]["losses"][:ENTRY_TRAIN_STEPS]
+        out[name] = {**child, "run": run,
+                     "parent_reserved_gb": reserved,
+                     "in_process_losses": want}
+        assert run["losses"] == want, (name, run["losses"], want)
+        assert run["ticket_launches"] == \
+            train[inproc]["ticket_launches"], (name, run)
+        assert run["plan_launches"] == 0, (name, run)
+
+    layers, batch, seq = TRAIN_ARCHS[ENTRY_GEMMA2]
+    spec = {"launcher": "train", "arch": ENTRY_GEMMA2, "layers": layers,
+            "runs": [["--arch", ENTRY_GEMMA2, "--batch", str(batch),
+                      "--seq", str(seq), "--steps",
+                      str(TRAIN_ARCHS_STEPS)]]}
+    want = gemma2["run"]
+    reserved = _release(dev)
+    child = run_child(root, spec)
+    run = _train_summary(child.pop("runs")[0], batch * seq)
+    out["gemma2"] = {**child, "run": run, "n_layers": layers,
+                     "parent_reserved_gb": reserved,
+                     "in_process_losses": want["losses"],
+                     "in_process_peak_gb": want["peak_memory_gb"],
+                     "peak_rel_diff": _rel(run["peak_memory_gb"],
+                                           want["peak_memory_gb"])}
+    assert run["losses"] == want["losses"], (run["losses"], want["losses"])
+    assert out["gemma2"]["peak_rel_diff"] <= ENTRY_PEAK_RTOL, out["gemma2"]
+    fixed = "expandable_segments:False"
+    _release(dev)
+    child = run_child(root, {**spec, "record_oom": True},
+                      {"PYTORCH_CUDA_ALLOC_CONF": fixed})
+    run = child.pop("runs")[0]
+    out["gemma2_fixed_segments"] = {
+        **child, "run": run,
+        "out_of_memory": "out_of_memory" in run,
+        "losses_equal": run.get("losses") == want["losses"]}
+    assert child["alloc_conf"] == fixed, child["alloc_conf"]
+
+    _release(dev)
+    plan_kernel.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = launch_serve.main(list(ENTRY_SERVE_ARGV))
+    tokens = [r.tokens_out for r in res["requests"]]
+    out["serve"] = {"argv": ENTRY_SERVE_ARGV,
+                    "in_process_seconds": time.perf_counter() - t0,
+                    "in_process_plan_launches": plan_kernel.launches,
+                    "in_process_tokens_out": tokens}
+    del res
+    reserved = _release(dev)
+    child = run_child(root, {"launcher": "serve",
+                             "runs": [ENTRY_SERVE_ARGV]})
+    run = child.pop("runs")[0]
+    out["serve"].update({**child, "run": run,
+                         "parent_reserved_gb": reserved})
+    assert plan_kernel.launches > 0
+    assert run["tokens_out"] == tokens, (run["tokens_out"], tokens)
+    assert run["plan_launches"] == plan_kernel.launches, run
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def train_chunked_phase(root: Path, dev, model, cfg, batch: int, seq: int,
+                        chunk: int, sequential: dict) -> dict:
+    """``cfg`` (falcon-mamba-7b or recurrentgemma-9b at TRAIN_ARCHS' cut)
+    through ``launch.train``'s command line in a child started as the
+    entry_points phase's are, with ``$REPRO_SCAN_CHUNK`` = ``chunk`` in its
+    environment: TRAIN_ARCHS_STEPS steps, then TRAIN_ARCHS_REPEAT steps of
+    the same argv in the same child, losses bit-identical.  Every scan
+    takes the chunked form (counted in the child: one call a recurrent
+    layer and pass, none of the sequential loop); losses finite, step 0
+    within TRAIN_LOSS0_RTOL of the reckoned start and within
+    TRAIN_LOSS_RTOL of the sequential run's (``sequential``: the
+    train_archs line of the same cut, this call); ms a step after the
+    first, tokens/s, the peak beside ``reckon_train_bytes`` of the chunked
+    scans."""
+    t0 = time.perf_counter()
+    kinds = cfg.layer_kinds()
+    scan = "selective_scan" if "mamba" in kinds else "rglru_scan"
+    recurrent = sum(k in ("mamba", "rglru") for k in kinds)
+    passes = 1 if cfg.remat == "none" else 2
+    reckoned = reckon_train_bytes(model, cfg, batch, seq, scan_chunk=chunk)
+    argv = ["--arch", cfg.name, "--batch", str(batch), "--seq", str(seq),
+            "--steps"]
+    spec = {"launcher": "train", "arch": cfg.name, "layers": cfg.n_layers,
+            "count_scans": True,
+            "runs": [argv + [str(TRAIN_ARCHS_STEPS)],
+                     argv + [str(TRAIN_ARCHS_REPEAT)]]}
+    reserved = _release(dev)
+    child = run_child(root, spec, {"REPRO_SCAN_CHUNK": str(chunk)})
+    run, again = (_train_summary(r, batch * seq) for r in child.pop("runs"))
+    losses = run["losses"]
+    start = sequential["reckoned_start"]
+    seq0 = sequential["run"]["losses"][0]
+    out = {"phase": "train_chunked", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "batch": batch, "seq": seq,
+           "scan_chunk": chunk, "remat": cfg.remat,
+           "reckoned_gb": {k: v / 1e9 for k, v in reckoned.items()
+                           if k != "params"},
+           "reckoned_start": start, "sequential_step0": seq0,
+           "sequential_ms": sequential["run"]["median_step_ms_after_first"],
+           "sequential_peak_gb": sequential["peak_gb"],
+           "parent_reserved_gb": reserved, "run": run, "repeat": again,
+           "peak_gb": run["peak_memory_gb"],
+           "step0_rel_to_start": _rel(losses[0], start),
+           "step0_rel_to_sequential": _rel(losses[0], seq0),
+           **child}
+    assert all(math.isfinite(x) for x in losses), losses
+    want = recurrent * passes * TRAIN_ARCHS_STEPS
+    assert run["scans"] == {f"{scan}_chunked": want}, (run["scans"], want)
+    assert out["step0_rel_to_start"] <= TRAIN_LOSS0_RTOL, out
+    assert out["step0_rel_to_sequential"] <= TRAIN_LOSS_RTOL, out
+    assert again["losses"] == losses[:TRAIN_ARCHS_REPEAT], (again, losses)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2783,33 +3120,22 @@ def reduced_dryruns(out_dir: str) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def launch_phase(train: dict, smi: str) -> dict:
-    """The launch tools on the host's CPU (fake tensors, no card time):
-    the dry run of granite-moe-1b-a400m × train_4k × pod16x16 at full width
-    (``repro_torch.launch.dryrun.run_cell`` over a fake process group of
-    256 ranks) and its Hopper roofline; then the one-device roofline (1×1
-    mesh) of the step phase 11 timed, with the config's remat and with
-    ``"none"``, held against the measured ms a step: the bound may not
-    exceed it, and ``train_mfu`` is the model's FLOPs over the card's bf16
-    peak times the measured step."""
-    from repro_torch.configs import ShapeCell, get_config
+def launch_dryruns(out_dir: str) -> dict:
+    """The launch phase's dry runs, on the host's CPU alone (fake tensors,
+    no card): :func:`reduced_dryruns`, then granite-moe-1b-a400m ×
+    train_4k × pod16x16 at full width (``repro_torch.launch.dryrun.run_cell``
+    over a fake process group of 256 ranks) and its Hopper roofline, held
+    to the reference's dry run: at most 2× its bytes a device, FLOPs within
+    10%."""
     from repro_torch.launch import dryrun, roofline
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.optim import AdamW
 
-    cfg = get_config(SERVE_ARCH)
-    out = {"phase": "launch", "arch": SERVE_ARCH, "card": smi}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    try:
-        out["reduced_cells"] = reduced_dryruns(tmp)
-        t0 = time.perf_counter()
-        res = dryrun.run_cell(SERVE_ARCH, "train_4k", multi_pod=False,
-                              out_dir=tmp)
-        wall = time.perf_counter() - t0
-        assert res["status"] == "ok", res
-        r = roofline.roofline_cell(os.path.join(tmp, res["cell"] + ".json"))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"reduced_cells": reduced_dryruns(out_dir)}
+    t0 = time.perf_counter()
+    res = dryrun.run_cell(SERVE_ARCH, "train_4k", multi_pod=False,
+                          out_dir=out_dir)
+    wall = time.perf_counter() - t0
+    assert res["status"] == "ok", res
+    r = roofline.roofline_cell(os.path.join(out_dir, res["cell"] + ".json"))
     gib = res["memory"]["total_per_device"] / 2**30
     out["dryrun"] = {
         "cell": res["cell"], "gib_per_device": r["memory_gib"],
@@ -2831,9 +3157,72 @@ def launch_phase(train: dict, smi: str) -> dict:
                        "step_time_bound_s", "roofline_fraction"]}
     assert 0 < r["memory_gib"] and r["dominant"] in (
         "compute", "memory", "collective", "latency"), r
-    # at most 2× the reference's bytes a device; FLOPs within 10%
     assert gib <= 2 * DRYRUN_REFERENCE["gib_per_device"], out["dryrun"]
     assert abs(out["dryrun"]["ratio"]["flops"] - 1) <= 0.1, out["dryrun"]
+    return out
+
+
+# The launch phase's dry runs in a child process with no card visible:
+# root, scratch dir and result file as arguments.
+DRYRUN_PROGRAM = r'''
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
+import chip_smoke
+with open(sys.argv[3], "w") as f:
+    json.dump(chip_smoke.launch_dryruns(sys.argv[2]), f)
+'''
+
+
+def start_dryruns(root: Path) -> dict:
+    """Start :func:`launch_dryruns` in a child process with no card visible
+    (``CUDA_VISIBLE_DEVICES`` empty), so that its minute and a half of one
+    host core runs beside the phases on the card; it is stopped and its
+    scratch removed when this script exits."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    job = {"result": os.path.join(tmp, "result.json"),
+           "log": os.path.join(tmp, "log.txt")}
+    with open(job["log"], "w") as log:
+        job["proc"] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PROGRAM, str(root),
+             os.path.join(tmp, "cells"), job["result"]],
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return job
+
+
+def finish_dryruns(job: dict, timeout: float = 900) -> dict:
+    """The result of :func:`start_dryruns`' child, waited for; its log's
+    tail raised if it failed."""
+    rc = job["proc"].wait(timeout=timeout)
+    if rc != 0:
+        with open(job["log"]) as f:
+            raise RuntimeError(f"dry runs exited {rc}:\n{f.read()[-3000:]}")
+    with open(job["result"]) as f:
+        return json.load(f)
+
+
+def launch_phase(train: dict, smi: str, dryruns: dict) -> dict:
+    """The launch tools on the host's CPU (fake tensors, no card time): the
+    dry runs of :func:`launch_dryruns` (``dryruns``, run beside the earlier
+    phases); then the one-device roofline (1×1 mesh) of the step phase 11
+    timed, with the config's remat and with ``"none"``, held against the
+    measured ms a step: the bound may not exceed it, and ``train_mfu`` is
+    the model's FLOPs over the card's bf16 peak times the measured step."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamW
+
+    cfg = get_config(SERVE_ARCH)
+    out = {"phase": "launch", "arch": SERVE_ARCH, "card": smi, **dryruns}
     cell = ShapeCell("train_b8_s512", "train", TRAIN_SEQ, TRAIN_BATCH)
     measured = {cfg.remat: train["plain"]["median_step_ms_after_first"],
                 "none": train["remat_none"]["median_step_ms_after_first"]}
@@ -2919,6 +3308,7 @@ def main() -> int:
     from repro_torch.sim.corpus import load_scenario, scenario_sweep_args
     from repro_torch.sim.workloads import RESULTS_STORE_ENV
     from repro_torch.data import synthetic_batch
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.train import train_step
 
@@ -2941,6 +3331,9 @@ def main() -> int:
         kw.pop("live_mem_words")
         n_locks = kw.pop("n_locks")
         return engine.sweep_inputs(progs, **kw, device=dev), n_locks
+
+    # the launch phase's dry runs (host CPU only), beside the phases below
+    dryruns = start_dryruns(root)
 
     # ---- 1. card and build
     smi = query_smi("name,power.limit")
@@ -3190,13 +3583,27 @@ def main() -> int:
 
     # ---- 11a. the other decoders at full width, depth cut, and why grok-1
     # takes no step at full width
+    trained = {}
     for arch, (layers, batch, seq) in TRAIN_ARCHS.items():
         acfg = get_config(arch)
-        emit(train_arch_phase(
+        trained[arch] = train_arch_phase(
             dev, launch_train, model,
             dataclasses.replace(acfg, n_layers=layers or acfg.n_layers),
-            batch, seq, acfg.n_layers, accum=arch == TRAIN_ACCUM_ARCH))
+            batch, seq, acfg.n_layers, accum=arch == TRAIN_ACCUM_ARCH)
+        emit(trained[arch])
     emit(grok_train_reckoning(model, get_config(GROK_ARCH)))
+
+    # ---- 11b. the launchers as a user starts them, in child processes
+    emit(entry_points_phase(root, dev, launch_serve, plan_kernel, train,
+                            trained[ENTRY_GEMMA2]))
+
+    # ---- 11c. the recurrent trains under the reference's $REPRO_SCAN_CHUNK
+    for arch, chunk in TRAIN_SCAN_CHUNK.items():
+        layers, batch, seq = TRAIN_ARCHS[arch]
+        emit(train_chunked_phase(
+            root, dev, model,
+            dataclasses.replace(get_config(arch), n_layers=layers), batch,
+            seq, chunk, trained[arch]))
 
     # ---- 12. reduced models train alike on the card and on the CPU
     emit(train_devices_phase(dev, model, train_step, optim, tree,
@@ -3214,7 +3621,7 @@ def main() -> int:
     emit(examples)
 
     # ---- 16. the launch tools: the dry run and the Hopper roofline
-    emit(launch_phase(train, smi))
+    emit(launch_phase(train, smi, finish_dryruns(dryruns)))
 
     bound, bound_by = bound_ms(reduced["bytes"], reduced["sum_events"])
     dec = ticket["timed"]["decode"]

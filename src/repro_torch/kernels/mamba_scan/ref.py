@@ -89,11 +89,14 @@ def selective_scan_chunked(x, dt, A, B, C, D_skip, h0=None, chunk: int = 64):
 
     z = dt.to(f32)[..., None] * A[:, None]                     # (Bt,L,D,N)
     b = (dt.to(f32) * x.to(f32))[..., None] * B.to(f32)[:, :, None, :]
-    # time-major within a chunk, chunks batched: (Lc, Bt, nc, ...)
-    zt = z.reshape(Bt, nc, chunk, Dm, N).permute(2, 0, 1, 3, 4)
-    bt = b.reshape(Bt, nc, chunk, Dm, N).permute(2, 0, 1, 3, 4)
-    Ct = C.to(f32).reshape(Bt, nc, chunk, N).permute(2, 0, 1, 3)
-    xt = x.to(f32).reshape(Bt, nc, chunk, Dm).permute(2, 0, 1, 3)
+    # time-major within a chunk, chunks batched: Lc steps of (Bt, nc, ...),
+    # unbound at once so that the backward stacks the steps' gradients in
+    # one pass (indexing step by step would make each step's gradient a
+    # zero-filled tensor of the whole input's size)
+    zt = z.reshape(Bt, nc, chunk, Dm, N).permute(2, 0, 1, 3, 4).unbind(0)
+    bt = b.reshape(Bt, nc, chunk, Dm, N).permute(2, 0, 1, 3, 4).unbind(0)
+    Ct = C.to(f32).reshape(Bt, nc, chunk, N).permute(2, 0, 1, 3).unbind(0)
+    xt = x.to(f32).reshape(Bt, nc, chunk, Dm).permute(2, 0, 1, 3).unbind(0)
     Dsk = D_skip[:, None]                                      # (Bt,1,D)
 
     # pass 1: every chunk from zero local state; the carry's factor

@@ -67,9 +67,11 @@ def rglru_scan_chunked(a, b, h0=None, chunk: int = 64):
     nc = L // chunk
     h_in = (torch.zeros((Bt, D), dtype=f32, device=a.device) if h0 is None
             else _h0(h0, a).to(f32))
-    # time-major within a chunk, chunks batched: (chunk, Bt, nc, D)
-    at = a.to(f32).reshape(Bt, nc, chunk, D).permute(2, 0, 1, 3)
-    bt = b.to(f32).reshape(Bt, nc, chunk, D).permute(2, 0, 1, 3)
+    # time-major within a chunk, chunks batched: chunk steps of (Bt, nc,
+    # D), unbound at once so that the backward stacks their gradients in
+    # one pass (as the selective scan's chunked form)
+    at = a.to(f32).reshape(Bt, nc, chunk, D).permute(2, 0, 1, 3).unbind(0)
+    bt = b.to(f32).reshape(Bt, nc, chunk, D).permute(2, 0, 1, 3).unbind(0)
 
     h = torch.zeros((Bt, nc, D), dtype=f32, device=a.device)
     arun = torch.ones_like(h)

@@ -32,7 +32,10 @@ Each runs here with ``--arch <name> --reduced --device cpu``.
 in the reference; ``hubert-xlarge`` is encoder-only.
 
 The flags and the printout are the reference's (``repro.launch.serve``),
-plus ``--device``; weights are random, drawn from ``--seed``.
+plus ``--device``; weights are random, drawn from ``--seed``.  The
+launcher gives the CUDA caching allocator expandable segments unless the
+caller set ``$PYTORCH_CUDA_ALLOC_CONF``
+(``repro_torch.device.default_allocator``).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..device import resolve_device
+from ..device import default_allocator, resolve_device
 from ..models.model import init_params
 from ..serve import ServeEngine
 
@@ -70,6 +73,7 @@ def main(argv=None) -> dict:
         raise SystemExit(f"{cfg.name} is encoder-only: no decode step")
 
     device = resolve_device(args.device)
+    default_allocator(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)

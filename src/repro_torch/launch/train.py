@@ -21,12 +21,18 @@ with float32 moments, the archs trained on the card by ``chip_smoke.py``
 depth cut in the config to about 2.5 B parameters: deepseek-7b 8 of 30,
 8 × 512, 56.5 GB, 378 ms (also ``--accum 2``); gemma3-1b all 26, 4 ×
 1,024, 32.6 GB, 381 ms; gemma2-27b 2 of 46, 1 × 4,160, 65.0 GB, 698 ms;
-mistral-large-123b 1 of 88, 8 × 512, 50.6 GB, 279 ms; falcon-mamba-7b 16
-of 64, 8 × 512, 51.2 GB, 13.9 s; recurrentgemma-9b 6 of 38, 2 × 2,600,
-53.7 GB, 4.4 s (both through their plain scans: no kernel has a backward
-pass).  The update holds about 22 bytes a parameter (the old and new
-parameters and float32 moments beside the gradients), so grok-1-314b,
-6.53 B parameters a layer, trains on one card only reduced.
+mistral-large-123b 1 of 88, 8 × 512, 50.6 GB, 279 ms; falcon-mamba-7b 8
+of 64, 8 × 512, 32.7 GB, 6.8 s; recurrentgemma-9b 6 of 38, 2 × 2,600,
+53.7 GB, 3.9 s (both through their plain scans, one token at a time: no
+kernel has a backward pass).  With ``$REPRO_SCAN_CHUNK`` set as in the
+reference (a chunk length that divides the sequence) the plain scans take
+their chunked form: falcon-mamba-7b with 64, 33.2 GB, 1.23 s a step;
+recurrentgemma-9b with 130, 53.6 GB, 0.76 s.  The update holds about 22
+bytes a parameter (the old and new parameters and float32 moments beside
+the gradients), so grok-1-314b, 6.53 B parameters a layer, trains on one
+card only reduced.  The launcher gives the CUDA caching allocator
+expandable segments unless the caller set ``$PYTORCH_CUDA_ALLOC_CONF``
+(``repro_torch.device.default_allocator``).
 
 The batches come from the Prefetcher, whose ring buffer is guarded by the
 paper's lock (``core.make_lock``: TWA unless ``$REPRO_LOCK`` names another);
@@ -44,7 +50,7 @@ from ..ckpt import AsyncCheckpointer, latest_step, restore
 from ..configs import get_config
 from ..core import InMemoryKVStore
 from ..data import Prefetcher, SyntheticLM
-from ..device import resolve_device
+from ..device import default_allocator, resolve_device
 from ..optim import AdamW
 from ..runtime import HeartbeatMonitor, StepTickets
 from ..train.train_step import TrainOptions, build_train_step, make_state
@@ -71,6 +77,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    default_allocator(device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
