@@ -3087,6 +3087,47 @@ CUT_DRYRUNS = (("granite-moe-1b-a400m", "decode_32k", 2),
                ("gemma3-1b", "long_500k", 2),
                ("gemma2-27b", "long_500k", 2))
 
+# The reference dry run of each CUT_DRYRUNS cell (its n_layers, the
+# config's dtype, pod16x16; repro.launch.dryrun.run_cell, then
+# repro.launch.roofline.analyze_hlo_text; jax 0.9.0 on a CPU): product
+# FLOPs, collective bytes, and collective bytes with each float32 tensor
+# counted at the model's 2 bytes (its CPU backend reduces a bf16
+# product's partial sums in float32, the port in bf16).  From
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/launch_fidelity_table.py \
+#     --layers N --arch A --shape S --out F
+# (its rows' ref "flops", "coll_bytes", "coll_bf16").  The card's host
+# has no JAX, so they are constants here.
+CUT_REFERENCE = {
+    "granite-moe-1b-a400m/decode_32k/L2": (223608832, 27404544.0,
+                                           13831168.0),
+    "gemma3-1b/decode_32k/L2": (393150464, 36881024.0, 18440768.0),
+    "recurrentgemma-9b/decode_32k/L3": (1721794560, 342353280.0,
+                                        171176896.0),
+    "falcon-mamba-7b/long_500k/L2": (4775936, 76422.5, 38211.25),
+    "recurrentgemma-9b/long_500k/L3": (14684160, 222052.5, 111026.25),
+    "gemma3-1b/long_500k/L2": (3731968, 438161.5, 219080.75),
+    "gemma2-27b/long_500k/L2": (559128576, 207637.5, 103818.75),
+}
+
+
+def held_to_reference(cells: dict) -> dict:
+    """Each cut cell of :func:`reduced_dryruns` beside
+    :data:`CUT_REFERENCE`: its FLOPs equal the reference's, and a
+    long_500k cell's collective bytes are within 2× of the reference's
+    counted at the model's dtype, nothing taken out.  Returns the ratios;
+    a cell outside raises."""
+    out, bad = {}, []
+    for key, (flops, coll, coll_model) in CUT_REFERENCE.items():
+        got = cells[key]
+        out[key] = {"flops": got["flops"] / flops,
+                    "coll": got["coll_bytes"] / coll,
+                    "coll_model_dtype": got["coll_bytes"] / coll_model}
+        if got["flops"] != flops or ("long_500k" in key and not
+                                     0.5 <= out[key]["coll_model_dtype"] <= 2):
+            bad.append((key, got, (flops, coll, coll_model)))
+    assert not bad, bad
+    return out
+
 
 def reduced_dryruns(out_dir: str) -> dict:
     """The dry run of every config's ``reduced()`` × applicable shape on
@@ -3122,7 +3163,8 @@ def reduced_dryruns(out_dir: str) -> dict:
 
 def launch_dryruns(out_dir: str) -> dict:
     """The launch phase's dry runs, on the host's CPU alone (fake tensors,
-    no card): :func:`reduced_dryruns`, then granite-moe-1b-a400m ×
+    no card): :func:`reduced_dryruns`, its cut cells held to the
+    reference's (:func:`held_to_reference`), then granite-moe-1b-a400m ×
     train_4k × pod16x16 at full width (``repro_torch.launch.dryrun.run_cell``
     over a fake process group of 256 ranks) and its Hopper roofline, held
     to the reference's dry run: at most 2× its bytes a device, FLOPs within
@@ -3130,6 +3172,7 @@ def launch_dryruns(out_dir: str) -> dict:
     from repro_torch.launch import dryrun, roofline
 
     out = {"reduced_cells": reduced_dryruns(out_dir)}
+    out["cut_vs_reference"] = held_to_reference(out["reduced_cells"]["cells"])
     t0 = time.perf_counter()
     res = dryrun.run_cell(SERVE_ARCH, "train_4k", multi_pod=False,
                           out_dir=out_dir)

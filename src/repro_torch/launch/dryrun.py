@@ -56,6 +56,8 @@ the record), but for a few, each scoped to the run
   their inputs with time whole; the rows keep the multiplier in ``trips``;
 * DTensor's shard-to-shard moves are recorded as the all-to-alls a GPU
   runs (on a CPU mesh DTensor makes each an all-gather and a cut);
+* the point-to-point moves of ``shard_utils.relocate`` are recorded as
+  collective-permutes with the parts the busiest device sends;
 * DTensor's own shape propagation, which runs each op once on fake
   tensors of global shape, is not recorded, nor its planning on the
   host's tensors.
@@ -535,6 +537,27 @@ def _alltoall(fallback):
     return run
 
 
+def _permute(fallback):
+    """The point-to-point move of ``shard_utils.relocate``, recorded as
+    one collective-permute (``_c10d_functional.collective_permute``,
+    counted as the bytes a device sends, the reference's count) with the
+    parts the busiest device sends and takes: which devices send depends
+    on their coordinates, and the one this process stands for may keep
+    its own."""
+    def run(buf, out_splits, in_splits, group, plan):
+        with _RECORDER.pause():
+            out = fallback(buf, out_splits, in_splits, group, plan)
+            part = torch.empty(plan.piece, dtype=buf.dtype, device="meta")
+        groups = _RECORDER.groups       # a mesh dim's group, or the world's
+        axes = groups.get(group.group_name, (tuple(
+            a for axes, _ in groups.values() for a in axes),))[0]
+        _RECORDER.add("_c10d_functional.collective_permute",
+                      [part] * plan.most_sent, [part] * plan.most_received,
+                      axes=axes, size=plan.size)
+        return out
+    return run
+
+
 def _default(op, args, kwargs):
     """``op`` through DTensor's own rule, past this module's handler."""
     from torch.distributed.tensor import DTensor
@@ -630,7 +653,8 @@ def sharded_execution(mesh, recorder: OpRecorder):
     the ops whose DTensor rule raises (views, the label gather, the decode
     cache's write; on torch 2.11 the embedding's backward),
     folded scans, the routing plan per group, shard moves recorded as
-    all-to-alls, implicit replication.  Every other op takes DTensor's own
+    all-to-alls, relocations as collective-permutes, implicit
+    replication.  Every other op takes DTensor's own
     rule."""
     global _RECORDER
     from torch.distributed.tensor import DTensor, placement_types
@@ -638,7 +662,7 @@ def sharded_execution(mesh, recorder: OpRecorder):
 
     from ..kernels.mamba_scan import ops as scan_ops
     from ..kernels.rglru import ops as rglru_ops
-    from ..models import layers
+    from ..models import layers, shard_utils
 
     aten = torch.ops.aten
     rules = {aten.view.default: _gathering_view,
@@ -653,7 +677,8 @@ def sharded_execution(mesh, recorder: OpRecorder):
                    rglru_ops.rglru_scan_ref, (0, 1), 3),
                (layers, "route_plan"): _local_plan(layers.route_plan),
                (placement_types, "shard_dim_alltoall"): _alltoall(
-                   placement_types.shard_dim_alltoall)}
+                   placement_types.shard_dim_alltoall),
+               (shard_utils, "_exchange"): _permute(shard_utils._exchange)}
     handlers = DTensor._op_dispatcher._custom_op_handlers
     saved_rules = {op: handlers.get(op) for op in rules}
     saved = {key: getattr(*key) for key in patched}

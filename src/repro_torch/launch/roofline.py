@@ -22,6 +22,7 @@ Conventions (per device, the reference's):
                   (2·(inputs − its target))
   link bytes      all-reduce 2·|in|·(n-1)/n, all-gather |out| - |in|,
                   reduce-scatter |in| - |out|, all-to-all |in|·(n-1)/n,
+                  collective-permute |in| (the parts a device sends),
                   anything else |in|
   dependent steps every launch (each non-free op, × its trips), plus one
                   more per collective
@@ -83,7 +84,7 @@ def link_bytes(row: dict) -> float:
         return max(i - o, 0)
     if kind.startswith("all_to_all"):
         return i * (n - 1) / n
-    return i
+    return i        # collective_permute: the parts a device sends
 
 
 def hbm_bytes(row: dict) -> float:

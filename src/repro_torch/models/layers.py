@@ -33,7 +33,7 @@ from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
 from ..kernels.ticket_dispatch.ref import renormalize, top_k_stable
 from .shard_utils import (ambient_mesh, constrain, mesh_axis_size, pad,
-                          shards, ways)
+                          relocate, shards, ways)
 
 NEG_INF = -1e30   # the reference's mask value
 
@@ -454,15 +454,16 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     cache_k[lanes, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[lanes, slot] = v_new[:, 0].to(cache_v.dtype)
     # under a mesh: the cache's KV heads on 'model' where they divide it,
-    # else its context dim, with q's heads replicated
+    # else its context dim, with q's heads replicated (one lane's ring
+    # cache, its context on 'data', moves there point to point)
     model_size = mesh_axis_size("model")
     kv_sharded = model_size > 1 and KV % model_size == 0
     if kv_sharded:
         cache_k = constrain(cache_k, "batch", None, "model", None)
         cache_v = constrain(cache_v, "batch", None, "model", None)
     else:
-        cache_k = constrain(cache_k, "batch", "model", None, None)
-        cache_v = constrain(cache_v, "batch", "model", None, None)
+        cache_k = relocate(cache_k, "batch", "model", None, None)
+        cache_v = relocate(cache_v, "batch", "model", None, None)
 
     qg = q.reshape(B, 1, KV, M, hd)
     if not kv_sharded:
@@ -473,6 +474,11 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *,
     mask = (ki <= pm) | (pm >= S_ctx) if window else ki <= pm
     probs = _probs(scores, mask, cfg, x.dtype,
                    split=model_size > 1 and not kv_sharded)
+    if not kv_sharded:
+        # keys on 'model'; where one lane leaves 'data' idle the heads take
+        # it, as the reference's partitioner splits the value product
+        # (torch 2.11's rules would run it with every head on each device)
+        probs = constrain(probs, "batch", None, "data", None, "model")
     out = torch.einsum("bgmqs,bsgd->bqgmd", probs, cache_v.to(x.dtype))
     out = out.reshape(B, 1, H, hd)
     return (_residual(torch.einsum("bshk,hkd->bsd", out, p["wo"])), cache_k,
@@ -706,11 +712,12 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
     kernel).  x (B, 1, D); ssm_state (B, d_inner, N); conv_state
     (B, kw-1, d_inner).  Returns (y, new_ssm, new_conv); the states are
     new tensors (the caller writes them into its cache)."""
-    # one token: split the product, its partial sums reduced first
-    # (gathering a token's 2·d_inner costs less than gathering the weight,
-    # as _halves would)
+    # one token: split the product, its partial sums reduced first (moving
+    # a token's 2·d_inner costs less than gathering the weight, as _halves
+    # would); under a mesh each device's part of x, or of z, is half of
+    # one device's part of xz, sent to it point to point
     xz = _inner(torch.einsum("bsd,dk->bsk", x, p["in_proj"]))
-    xin, z = (_inner(t) for t in xz.chunk(2, dim=-1))          # (B,1,di)
+    xin, z = relocate(xz, "batch", None, "inner", chunks=2)     # (B,1,di)
     window = torch.cat([conv_state, xin], dim=1)                # (B,kw,di)
     conv = torch.einsum("bkd,dk->bd", window, p["conv_w"]) + p["conv_b"]
     xin1 = _inner(F.silu(conv)[:, None, :])                     # (B,1,di)

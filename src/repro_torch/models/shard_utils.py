@@ -23,8 +23,13 @@ keep a shard), so the port states those placements where they arise.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
+import dataclasses
+import functools
+import itertools
+import math
 
 import torch
 
@@ -282,3 +287,225 @@ class _Constrain(torch.autograd.Function):
         if tuple(grad.placements) != ctx.want:
             grad = grad.redistribute(grad.device_mesh, ctx.want)
         return grad, None
+
+
+def relocate(x, *axes, chunks: int = 1):
+    """:func:`constrain` of each of ``x.chunk(chunks, -1)`` to ``axes`` (a
+    tuple of them when ``chunks`` > 1), whose parts, under a mesh, are
+    sent point to point where the move only relocates them: every device's
+    part of every chunk lies whole in one device's part of ``x``.  Each
+    part then crosses a link once, as the reference's partitioner moves it
+    with a collective-permute; DTensor would gather the whole of ``x`` over
+    the mesh dim and cut it, (m − 1) parts a move.  Any other move is
+    :func:`constrain`'s.  The parts travel in one ``all_to_all_single``
+    with per-peer split sizes over the mesh dim they cross, or over the
+    whole mesh when they cross several.  It has no backward: under
+    autograd it raises rather than leave ``x`` a wrong gradient."""
+    mesh = ambient_mesh()
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(x, DTensor):
+        return x if chunks == 1 else x.chunk(chunks, dim=-1)
+    want = _placements(mesh, (*x.shape[:-1], x.shape[-1] // chunks), axes)
+    plan = None
+    if x.shape[-1] % chunks == 0:
+        plan = _relocation(tuple(mesh.shape), tuple(x.shape),
+                           tuple(x.placements), want, chunks)
+    if plan is None:
+        if chunks == 1:
+            return constrain(x, *axes)
+        return tuple(constrain(t, *axes) for t in x.chunk(chunks, dim=-1))
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("relocate has no backward pass, and its input "
+                           "requires grad")
+    group = None
+    if len(plan.dims) == 1:
+        group = mesh.get_group(plan.dims[0])
+    elif plan.dims:
+        group = _world_group(mesh)
+    coord = tuple(mesh.get_coordinate())
+    n = math.prod(plan.piece)
+
+    def local(t):
+        parts = [None] * chunks
+        if group is None:                # every part is where it is wanted
+            for _, k, cut in plan.sends[coord]:
+                parts[k] = _cut(t, cut)
+            return tuple(parts)
+        in_splits, out_splits = [0] * plan.size, [0] * plan.size
+        for peer, _, _ in plan.sends[coord]:
+            in_splits[peer] += n
+        for peer, _ in plan.recvs[coord]:
+            out_splits[peer] += n
+        buf = torch.cat([_cut(t, cut).reshape(-1)
+                         for _, _, cut in plan.sends[coord]]
+                        or [t.new_empty((0,))])
+        got = _exchange(buf, out_splits, in_splits, group, plan).split(n)
+        for (_, k), part in zip(plan.recvs[coord], got):
+            parts[k] = part.view(plan.piece)
+        return tuple(parts)
+
+    from torch.distributed.tensor.experimental import local_map
+    out = local_map(local, out_placements=(want,) * chunks,
+                    in_placements=(tuple(x.placements),),
+                    device_mesh=mesh)(x)
+    return out[0] if chunks == 1 else tuple(out)
+
+
+def _cut(t, cut: tuple):
+    """``t``'s block at ``cut`` ((start, length) a dim)."""
+    for d, (a, n) in enumerate(cut):
+        if n != t.shape[d]:
+            t = t.narrow(d, a, n)
+    return t
+
+
+def _world_group(mesh):
+    """The default process group, where ``mesh`` lays the world's ranks
+    out in their order (a move across several mesh dims runs over it)."""
+    import torch.distributed as dist
+    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise RuntimeError("a move across mesh dims needs a mesh of the "
+                           "world's ranks in order")
+    return dist.group.WORLD
+
+
+def _exchange(buf, out_splits: list, in_splits: list, group, plan):
+    """``buf`` cut by ``in_splits`` to the group's ranks, the parts from
+    them joined by ``out_splits``: one ``all_to_all_single``.  ``plan``
+    (:class:`_Relocation`) is for the dry run, which records the move
+    (``launch.dryrun.sharded_execution``)."""
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_to_all_single(
+        buf, out_splits, in_splits, group))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Relocation:
+    """The moves of :func:`relocate`, by device coordinate: ``sends``
+    (the receiver's rank in the group, chunk, block of the sender's part)
+    and ``recvs`` (the sender's rank in the group, chunk), each in the
+    order the buffers lay them out.  ``dims`` are the mesh dims the parts
+    cross (none: every device keeps its own), ``size`` their group's
+    ranks, ``piece`` a part's local shape; ``most_sent`` and
+    ``most_received`` count the parts the busiest device sends to others
+    and takes from them."""
+    dims: tuple
+    size: int
+    piece: tuple
+    sends: dict
+    recvs: dict
+    most_sent: int
+    most_received: int
+
+
+def _block(shape, place, sizes, coord):
+    """The block ((start, length) a dim) device ``coord`` holds of a
+    tensor of ``shape`` laid out as ``place``, or None where a placement
+    is not a plain shard or replica or a shard does not divide."""
+    from torch.distributed.tensor import Replicate, Shard
+    lo, n = [0] * len(shape), list(shape)
+    for i, p in enumerate(place):
+        if type(p) is Replicate:
+            continue
+        if type(p) is not Shard:
+            return None
+        d = p.dim % len(shape)
+        if n[d] % sizes[i]:
+            return None
+        n[d] //= sizes[i]
+        lo[d] += coord[i] * n[d]
+    return tuple(zip(lo, n))
+
+
+def _inside(block, outer) -> bool:
+    return all(ho <= a and a + n <= ho + hn
+               for (a, n), (ho, hn) in zip(block, outer))
+
+
+@functools.lru_cache(maxsize=256)
+def _relocation(sizes, shape, src, want, chunks):
+    """The moves of :func:`relocate` on a mesh of ``sizes`` (its ranks in
+    row-major order), or None where some device's part of a chunk is not
+    held whole by one device.
+
+    A device whose own part holds its part of a chunk keeps it; the others
+    take theirs from a holder, and the holders of a part differ only on
+    the mesh dims that replicate ``x``.  The moves cross one mesh dim, or
+    all of them (a group spans either): of the choices, the one whose
+    busiest device sends the fewest parts, then the one crossing fewer
+    dims.  Within a choice the receivers of a part go round its holders in
+    turn, the holders in reach (agreeing with the receiver on the dims not
+    crossed) taken in order: falcon-mamba's (x, z) halves move along
+    ``model`` within each row of the mesh, two halves a device; one
+    lane's ring cache moving its context from ``data`` to ``model`` sends
+    one part a device over the whole mesh, where along one dim a single
+    holder would send to every row."""
+    coords = list(itertools.product(*(range(m) for m in sizes)))
+    part = (*shape[:-1], shape[-1] // chunks)
+    held = {c: _block(shape, src, sizes, c) for c in coords}
+    wanted = {c: _block(part, want, sizes, c) for c in coords}
+    if None in held.values() or None in wanted.values():
+        return None
+    holders: dict = {}                   # a block -> its holders, in order
+    for c in coords:
+        holders.setdefault(held[c], []).append(c)
+    needs = []                           # (receiver, chunk, block, holders)
+    for c in coords:
+        for k in range(chunks):
+            b = (*wanted[c][:-1],
+                 (wanted[c][-1][0] + k * part[-1], wanted[c][-1][1]))
+            if _inside(b, held[c]):
+                needs.append((c, k, b, [c]))
+                continue
+            owner = next((h for h in holders if _inside(b, h)), None)
+            if owner is None:
+                return None
+            needs.append((c, k, b, holders[owner]))
+
+    def assign(cross):
+        turn = collections.Counter()
+        moves = []                       # (receiver, chunk, sender, block)
+        for c, k, b, hs in needs:
+            reach = [h for h in hs if all(h[i] == c[i] for i in range(
+                len(sizes)) if i not in cross)]
+            if not reach:
+                return None
+            s = reach[turn[tuple(reach)] % len(reach)]
+            turn[tuple(reach)] += 1
+            moves.append((c, k, s, tuple((a - ho, m) for (a, m), (ho, _)
+                                         in zip(b, held[s]))))
+        return moves
+
+    best = None
+    for cross in [(i,) for i in range(len(sizes))] + [
+            tuple(range(len(sizes)))]:
+        moves = assign(cross)
+        if moves is None:
+            continue
+        load = max(collections.Counter(s for c, _, s, _ in moves
+                                       if s != c).values(), default=0)
+        if best is None or load < best[0]:
+            best = (load, moves)
+    moves = best[1]
+    dims = tuple(sorted({i for c, _, s, _ in moves
+                         for i in range(len(sizes)) if c[i] != s[i]}))
+    if len(dims) > 1:                    # the world's group spans them
+        dims = tuple(range(len(sizes)))
+    flat = {c: r for r, c in enumerate(coords)}
+
+    def rank(c):
+        return c[dims[0]] if len(dims) == 1 else flat[c]
+    sends = {c: [] for c in coords}
+    recvs = {c: [] for c in coords}
+    for c, k, s, cut in moves:
+        sends[s].append((rank(c), k, cut))
+        recvs[c].append((rank(s), k))
+    away = [(c, s) for c, _, s, _ in moves if c != s]
+    return _Relocation(
+        dims=dims, size=math.prod(sizes[i] for i in dims),
+        piece=tuple(m for _, m in wanted[coords[0]]),
+        sends={c: sorted(v, key=lambda e: e[:2]) for c, v in sends.items()},
+        recvs={c: sorted(v) for c, v in recvs.items()},
+        most_sent=best[0],
+        most_received=max(collections.Counter(c for c, _ in away).values(),
+                          default=0))

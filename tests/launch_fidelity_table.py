@@ -4,12 +4,17 @@ the matrix-product FLOPs and the collective link bytes, with their ratios.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/launch_fidelity_table.py --out local/fidelity.jsonl
 
+``--layers n`` cuts every config's depth on both sides (chip_smoke's
+``CUT_REFERENCE`` holds the reference's numbers of its cut cells so).
+
 A tool beside the tests, not one of them (its cells take minutes): it
 runs the port's ``repro_torch.launch.dryrun`` in this process and the
 reference's ``repro.launch.dryrun`` in a subprocess an arch (the
 reference's dry run sets ``XLA_FLAGS`` at import), with the helpers of
 ``test_torch_launch_fidelity.py``.  Counts on a CPU, never a time.
 
+Each row gives the point-to-point moves' link bytes on both sides
+(``permute``: the port's collective-permutes, the reference analyzer's).
 Beside the reference's collective bytes it gives ``coll_bf16``: the same
 program with each float32 tensor counted at 2 bytes in a bf16 config (of
 its counts only the collective bytes are taken so).  The reference's CPU
@@ -23,6 +28,7 @@ temporary directory): shape and bytes.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -33,16 +39,19 @@ import textwrap
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_torch_launch_fidelity import REPO, port, port_classes  # noqa: E402
+from test_torch_launch_fidelity_decode import relocated  # noqa: E402
 
 from repro_torch.configs import ARCHS, SHAPES, applicable  # noqa: E402
 
 ONE_HOT = "bsv,bsv->bs"
 
 
-def reference(arch: str, shapes: list, multi_pod: bool, tmp: str) -> dict:
+def reference(arch: str, shapes: list, multi_pod: bool, tmp: str,
+              overrides: dict | None = None) -> dict:
     """{shape: the reference dry run's memory, FLOPs (one-hot apart) and
     collective bytes, as they are and with float32 collectives of a bf16
-    config counted at bf16}, one subprocess for the arch."""
+    config counted at bf16}, one subprocess for the arch (its config with
+    ``overrides``)."""
     code = textwrap.dedent(f"""
         import glob, json, math, os, re, shutil, sys
         sys.path.insert(0, "src")
@@ -75,7 +84,7 @@ def reference(arch: str, shapes: list, multi_pod: bool, tmp: str) -> dict:
         out = {{}}
         for shape in {shapes!r}:
             r = run_cell({arch!r}, shape, multi_pod={multi_pod!r},
-                         out_dir={tmp!r})
+                         out_dir={tmp!r}, cfg_overrides={overrides!r})
             with open(r["hlo_path"]) as f:
                 text = f.read()
             os.remove(r["hlo_path"])
@@ -178,19 +187,19 @@ def named(kind: str, ref: dict, port_bytes: int, port_coll: float,
     return out
 
 
-def rows(archs, shapes, multi_pod: bool):
+def rows(archs, shapes, multi_pod: bool, overrides: dict | None = None):
     """One row a cell: the port's and the reference's numbers and ratios
     (bytes, FLOPs against the reference's less its one-hot term,
-    collective bytes)."""
+    collective bytes), each config with ``overrides``."""
     for arch in archs:
-        cfg = ARCHS[arch]
+        cfg = dataclasses.replace(ARCHS[arch], **(overrides or {}))
         todo = [s for s in shapes if applicable(cfg, SHAPES[s])[0]]
         if not todo:
             continue
         with tempfile.TemporaryDirectory() as tmp:
-            ref = reference(arch, todo, multi_pod, tmp)
+            ref = reference(arch, todo, multi_pod, tmp, overrides)
             for shape in todo:
-                got = port(arch, shape, None, multi_pod,
+                got = port(arch, shape, overrides, multi_pod,
                            os.path.join(tmp, "port"))
                 r = ref[shape]
                 p_bytes = got["memory"]["total_per_device"]
@@ -205,11 +214,14 @@ def rows(archs, shapes, multi_pod: bool):
                         "alias": r["memory"]["alias_size_in_bytes"],
                         "arguments": r["memory"]["argument_size_in_bytes"],
                         "temp_buffers": r["temp_buffers"],
-                        "coll_top": r["coll_top"]}
+                        "coll_top": r["coll_top"],
+                        "permute": sum(v for k, v in r["coll_top"]
+                                       if k.startswith("collective-permute|"))}
                 yield {
                     "arch": arch, "shape": shape,
                     "port": {"bytes": p_bytes, "flops": got["flops"],
                              "coll_bytes": got["coll_bytes"],
+                             "permute": relocated(got),
                              "classes": port_classes(got["rows"], cfg)},
                     "ref": refd,
                     "named": named(SHAPES[shape].kind, refd, p_bytes,
@@ -229,24 +241,27 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--layers", type=int, help="cut each config's depth "
+                    "to this many layers (both sides)")
     ap.add_argument("--out", required=True, help="JSON lines, one a cell")
     ap.add_argument("--rows", help="re-derive the named terms of the rows "
                     "of this JSON-lines file (no dry run), written to --out")
     args = ap.parse_args(argv)
     archs = sorted(ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    overrides = {"n_layers": args.layers} if args.layers else {}
     if args.rows:
         with open(args.rows) as f:
             done = [json.loads(line) for line in f]
         for row in done:
-            cfg = ARCHS[row["arch"]]
+            cfg = dataclasses.replace(ARCHS[row["arch"]], **overrides)
             row["named"] = named(
                 SHAPES[row["shape"]].kind, row["ref"], row["port"]["bytes"],
                 row["port"]["coll_bytes"], cfg.n_periods,
                 *part_dims(cfg, row["shape"], args.multi_pod))
         todo = iter(done)
     else:
-        todo = rows(archs, shapes, args.multi_pod)
+        todo = rows(archs, shapes, args.multi_pod, overrides)
     with open(args.out, "a") as f:
         for row in todo:
             f.write(json.dumps(row) + "\n")
@@ -259,7 +274,9 @@ def main(argv=None) -> None:
                   f" ({r['flops'] or 0:.3f})  coll "
                   f"{row['port']['coll_bytes']:.4g}/"
                   f"{row['ref']['coll_bytes']:.4g} ({r['coll'] or 0:.2f}; "
-                  f"bf16 {r['coll_bf16'] or 0:.2f})  named: bytes "
+                  f"bf16 {r['coll_bf16'] or 0:.2f}; permute "
+                  f"{row['port']['permute']:.4g}/{row['ref']['permute']:.4g})"
+                  f"  named: bytes "
                   f"{row['named']['bytes_ratio']:.2f} coll "
                   f"{row['named'].get('coll_ratio') or 0:.2f}", flush=True)
 
