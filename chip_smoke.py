@@ -3085,7 +3085,13 @@ CUT_DRYRUNS = (("granite-moe-1b-a400m", "decode_32k", 2),
                ("falcon-mamba-7b", "long_500k", 2),
                ("recurrentgemma-9b", "long_500k", 3),
                ("gemma3-1b", "long_500k", 2),
-               ("gemma2-27b", "long_500k", 2))
+               ("gemma2-27b", "long_500k", 2),
+               # autograd cells: their forward and backward run
+               # shard_utils.relocate (falcon-mamba's in-projection halves,
+               # recurrentgemma's gate parts)
+               ("falcon-mamba-7b", "train_4k", 2),
+               ("recurrentgemma-9b", "prefill_32k", 3),
+               ("recurrentgemma-9b", "train_4k", 3))
 
 # The reference dry run of each CUT_DRYRUNS cell (its n_layers, the
 # config's dtype, pod16x16; repro.launch.dryrun.run_cell, then
@@ -3107,23 +3113,74 @@ CUT_REFERENCE = {
     "recurrentgemma-9b/long_500k/L3": (14684160, 222052.5, 111026.25),
     "gemma3-1b/long_500k/L2": (3731968, 438161.5, 219080.75),
     "gemma2-27b/long_500k/L2": (559128576, 207637.5, 103818.75),
+    # the product FLOPs less the reference's one-hot label contraction
+    # (the port takes the label logit without a product)
+    "falcon-mamba-7b/train_4k/L2": (12886512500736, 27561625799.5,
+                                    13783696483.75),
+    "recurrentgemma-9b/prefill_32k/L3": (14500078026752, 24219722752.0,
+                                         12111958528.0),
+    "recurrentgemma-9b/train_4k/L3": (48740094181376, 101747698133.5,
+                                      50876732650.75),
+}
+
+# The port's own product FLOPs of the autograd cells (the same dry run on
+# torch 2.13 and a CPU: reduced_dryruns(...)["cells"][key]["flops"]), held
+# in place of the reference's where they part, each gap named:
+# * falcon-mamba-7b train_4k: 1.0000417× the reference's, 536,870,912
+#   FLOPs: one of the depthwise conv's two backward products
+#   (bsdk,dk->bsd: 512×16384×4 by 4×1 a device, 2 layers × 4
+#   microbatches), a product on the port's side, an elementwise multiply
+#   (no dot) on the reference's;
+# * recurrentgemma-9b train_4k: 1.0052927× the reference's,
+#   257,966,473,216 FLOPs: that conv term (268,435,456), and 15/16 of 8
+#   products of 16384×4096×256 a device in the key and value projections
+#   (bsd,dhk->bshk) of its local attention layer, whose one KV head does
+#   not divide model: the port runs them whole on every device, the
+#   reference's partitioner splits one of their backward products over
+#   model.
+CUT_PORT_FLOPS = {
+    "falcon-mamba-7b/train_4k/L2": 12887049371648,
+    "recurrentgemma-9b/prefill_32k/L3": 14500078026752,
+    "recurrentgemma-9b/train_4k/L3": 48998060654592,
+}
+
+# The relocations of the autograd cells (shard_utils.relocate, forward and
+# backward): the part each device takes, a collective_permute row over
+# model, and the shapes of which no all-gather over model may be left: the
+# part, and for falcon-mamba a device's part of the in-projection, which
+# chunking the weight gathered.
+CUT_MOVES = {
+    "falcon-mamba-7b/train_4k/L2": ("4096x512", ("4096x512", "4096x1024")),
+    "recurrentgemma-9b/prefill_32k/L3": ("2x32768x256", ("2x32768x256",)),
+    "recurrentgemma-9b/train_4k/L3": ("4x4096x256", ("4x4096x256",)),
 }
 
 
 def held_to_reference(cells: dict) -> dict:
     """Each cut cell of :func:`reduced_dryruns` beside
-    :data:`CUT_REFERENCE`: its FLOPs equal the reference's, and a
-    long_500k cell's collective bytes are within 2× of the reference's
-    counted at the model's dtype, nothing taken out.  Returns the ratios;
-    a cell outside raises."""
+    :data:`CUT_REFERENCE`: its FLOPs equal the reference's (an autograd
+    cell's the port's own count, :data:`CUT_PORT_FLOPS`), and a long_500k
+    or autograd cell's collective bytes are within 2× of the reference's
+    counted at the model's dtype, nothing taken out; an autograd cell's
+    relocations are collective-permutes with no all-gather of their parts
+    (:data:`CUT_MOVES`).  Returns the ratios; a cell outside raises."""
     out, bad = {}, []
     for key, (flops, coll, coll_model) in CUT_REFERENCE.items():
         got = cells[key]
         out[key] = {"flops": got["flops"] / flops,
                     "coll": got["coll_bytes"] / coll,
                     "coll_model_dtype": got["coll_bytes"] / coll_model}
-        if got["flops"] != flops or ("long_500k" in key and not
-                                     0.5 <= out[key]["coll_model_dtype"] <= 2):
+        held = "long_500k" in key or key in CUT_PORT_FLOPS
+        ok = got["flops"] == CUT_PORT_FLOPS.get(key, flops) and (
+            not held or 0.5 <= out[key]["coll_model_dtype"] <= 2)
+        if key in CUT_MOVES:
+            part, ungathered = CUT_MOVES[key]
+            out[key]["permutes"] = got["permutes"]
+            ok = ok and [part, ["model"]] in [
+                p[:2] for p in got["permutes"]] and not any(
+                g in [[u, ["model"]] for u in ungathered]
+                for g in got["gathers"])
+        if not ok:
             bad.append((key, got, (flops, coll, coll_model)))
     assert not bad, bad
     return out
@@ -3157,6 +3214,17 @@ def reduced_dryruns(out_dir: str) -> dict:
             cells[key] = {
                 "mib": res["memory"]["total_per_device"] / 2**20,
                 "flops": r["op_flops"], "coll_bytes": r["coll_bytes"]}
+            if key in CUT_MOVES:
+                with open(res["ops_path"]) as f:
+                    rows = json.load(f)
+
+                def part(op):
+                    return [[row["shapes"].split(",")[0], row["axes"],
+                             row["calls"]] for row in rows
+                            if row["op"] == "_c10d_functional." + op]
+                cells[key].update(permutes=part("collective_permute"),
+                                  gathers=[g[:2] for g in part(
+                                      "all_gather_into_tensor")])
     return {"cells": cells, "count": len(cells),
             "seconds": time.perf_counter() - t0}
 

@@ -32,8 +32,8 @@ from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
 from ..kernels.ticket_dispatch.ref import renormalize, top_k_stable
-from .shard_utils import (ambient_mesh, constrain, mesh_axis_size, pad,
-                          relocate, shards, ways)
+from .shard_utils import (ambient_mesh, constrain, gathered,
+                          mesh_axis_size, pad, relocate, shards, ways)
 
 NEG_INF = -1e30   # the reference's mask value
 
@@ -647,13 +647,16 @@ def _halves(x, w, axis: str):
     """``(x @ w).chunk(2, -1)`` for x (B, S, D), w (D, 2k).  Under a mesh
     that shards w's last dim (logical ``axis``) each half is the product
     with its half of w, laid out on the mesh: chunking the sharded product
-    would gather it on every device, where the weight's halves cost a
-    gather of the weight."""
+    would gather it on every device.  Each device's part of a half of w
+    (its rows whole, as the FSDP gather left them: the product contracts
+    them) is half of one device's part of w, sent to it point to point
+    (:func:`relocate`; the backward sends the cotangents back), where
+    chunking w would gather it over the axis."""
     if not shards(axis, w.shape[-1]):
         return torch.einsum("bsd,dk->bsk", x, w).chunk(2, dim=-1)
-    return tuple(constrain(torch.einsum(
-        "bsd,dk->bsk", x, constrain(h, "embed", axis)), "batch", None, axis)
-        for h in w.chunk(2, dim=-1))
+    return tuple(constrain(torch.einsum("bsd,dk->bsk", x, h), "batch", None,
+                           axis)
+                 for h in relocate(w, None, axis, chunks=2))
 
 
 def _ssm_inputs(p, xin, cfg: ArchConfig):
@@ -713,9 +716,9 @@ def mamba_decode(p, x, ssm_state, conv_state, cfg: ArchConfig):
     (B, kw-1, d_inner).  Returns (y, new_ssm, new_conv); the states are
     new tensors (the caller writes them into its cache)."""
     # one token: split the product, its partial sums reduced first (moving
-    # a token's 2·d_inner costs less than gathering the weight, as _halves
-    # would); under a mesh each device's part of x, or of z, is half of
-    # one device's part of xz, sent to it point to point
+    # a token's 2·d_inner costs less than moving the weight's halves, as
+    # _halves does); under a mesh each device's part of x, or of z, is half
+    # of one device's part of xz, sent to it point to point
     xz = _inner(torch.einsum("bsd,dk->bsk", x, p["in_proj"]))
     xin, z = relocate(xz, "batch", None, "inner", chunks=2)     # (B,1,di)
     window = torch.cat([conv_state, xin], dim=1)                # (B,kw,di)
@@ -745,14 +748,28 @@ def _lru(t):
     return constrain(t, "batch", None, "lru")
 
 
-def _rglru_gates(p, conv, dtype):
-    """a and b of the recurrence from the conv'd input (..., w), as the
-    reference computes them: a = exp(-c·softplus(Λ)·σ(r)) in float32 from
-    the float32 ``lam``, **rounded to x's dtype before it makes b**;
-    b = sqrt(max(1 - a², 1e-12)) (float32, then rounded) · σ(i)·conv."""
-    gates = torch.einsum("...w,wk->...k", conv, p["w_rg"])
-    gates = constrain(gates, "batch", *(None,) * (gates.dim() - 1))
-    r, i = gates.chunk(2, dim=-1)
+def _rglru_gates(p, conv, dtype, cols: str = "lru"):
+    """a and b of the recurrence from the conv'd input (lanes, ..., w), as
+    the reference computes them: a = exp(-c·softplus(Λ)·σ(r)) in float32
+    from the float32 ``lam``, **rounded to x's dtype before it makes b**;
+    b = sqrt(max(1 - a², 1e-12)) (float32, then rounded) · σ(i)·conv.
+
+    Under a mesh the product's partial sums over the width are reduced
+    onto the mesh axes of logical ``cols``, the lanes kept where they lie:
+    with ``"lru"`` a reduce-scatter of its columns onto Λ's axis, with one
+    lane (its columns on the idle batch axes, ``"batch"``) an all-reduce
+    over Λ's axis, as the reference's partitioner reduces it.  Each
+    device's parts of r and i, laid out as Λ, then lie whole in one
+    device's part of the product and are sent to it point to point
+    (:func:`relocate`), where making the product whole and cutting it
+    would move all of it.  The reduction is DTensor's own redistribution
+    (:func:`gathered`), whose backward hands the product's cotangent on
+    whole, as the gather-and-cut did: the contraction's backward then runs
+    on each device as before, the same sums in the same order."""
+    lead = (None,) * (conv.dim() - 2)
+    gates = gathered(torch.einsum("...w,wk->...k", conv, p["w_rg"]),
+                     "batch", *lead, cols)
+    r, i = relocate(gates, "batch", *lead, "lru", chunks=2)
     a = torch.exp(-RGLRU_C * softplus(p["lam"].float())
                   * torch.sigmoid(r.float())).to(dtype)
     af = a.float()
@@ -801,11 +818,13 @@ def rglru_decode(p, x, h, conv_state, cfg: ArchConfig):
                   approximate="tanh")
     window = torch.cat([conv_state, xb], dim=1)                 # (B,kw,w)
     conv = torch.einsum("bkw,wk->bw", window, p["conv_w"]) + p["conv_b"]
+    cols = "lru"
     if _one_lane(x.shape[0]):
         # the gate product's columns lie on the idle batch axes, as the
         # reference's partitioner splits it
         p = {**p, "w_rg": constrain(p["w_rg"], "lru", "batch")}
-    a, b = _rglru_gates(p, conv, x.dtype)
+        cols = "batch"
+    a, b = _rglru_gates(p, conv, x.dtype, cols)
     h_new = a * h + b
     y = (h_new * gate[:, 0])[:, None, :]
     out = _residual(torch.einsum("bsw,wd->bsd", y, p["w_out"]))

@@ -237,8 +237,10 @@ def gathered(w, *axes):
     backward reduce-scatters the gradient back onto the weight's
     placements at once, as the reference's partitioner does a layer at a
     time (gathered inside an op, the weight's gradient would stay a
-    partial sum at full width until the step's end).  ``w`` itself
-    without a mesh."""
+    partial sum at full width until the step's end).  Of an activation's
+    pending partial sum its backward hands the cotangent on whole over the
+    dims the forward summed, where :func:`constrain`'s keeps it laid out
+    as the output.  ``w`` itself without a mesh."""
     mesh = ambient_mesh()
     if mesh is None:
         return w
@@ -299,8 +301,16 @@ def relocate(x, *axes, chunks: int = 1):
     the mesh dim and cut it, (m − 1) parts a move.  Any other move is
     :func:`constrain`'s.  The parts travel in one ``all_to_all_single``
     with per-peer split sizes over the mesh dim they cross, or over the
-    whole mesh when they cross several.  It has no backward: under
-    autograd it raises rather than leave ``x`` a wrong gradient."""
+    whole mesh when they cross several.
+
+    Under autograd the backward is the inverse move (:class:`_Relocate`):
+    each part's cotangent, laid out as the part, goes back to the device
+    that sent the part and is written at the part's block of a zero
+    buffer, in one more ``all_to_all_single``.  Where ``x`` is replicated
+    over a mesh dim each cotangent lands on one holder: a pending partial
+    sum of the cotangent stays ``Partial()`` in the gradient, reduced
+    where the next redistribution asks for it; any other gradient is
+    all-reduced there."""
     mesh = ambient_mesh()
     from torch.distributed.tensor import DTensor
     if mesh is None or not isinstance(x, DTensor):
@@ -314,41 +324,142 @@ def relocate(x, *axes, chunks: int = 1):
         if chunks == 1:
             return constrain(x, *axes)
         return tuple(constrain(t, *axes) for t in x.chunk(chunks, dim=-1))
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("relocate has no backward pass, and its input "
-                           "requires grad")
-    group = None
-    if len(plan.dims) == 1:
-        group = mesh.get_group(plan.dims[0])
-    elif plan.dims:
-        group = _world_group(mesh)
+    if x.requires_grad and torch.is_grad_enabled():
+        out = _Relocate.apply(x, plan, want, chunks)
+    else:
+        out = _moved(x, plan, want, chunks)
+    return out[0] if chunks == 1 else tuple(out)
+
+
+def _moved(x, plan, want, chunks: int) -> tuple:
+    """The ``chunks`` parts of ``x`` laid out as ``want``, moved by
+    ``plan`` (:class:`_Relocation`)."""
+    mesh = x.device_mesh
+    group = _group(mesh, plan)
     coord = tuple(mesh.get_coordinate())
-    n = math.prod(plan.piece)
 
     def local(t):
         parts = [None] * chunks
-        if group is None:                # every part is where it is wanted
-            for _, k, cut in plan.sends[coord]:
-                parts[k] = _cut(t, cut)
-            return tuple(parts)
-        in_splits, out_splits = [0] * plan.size, [0] * plan.size
-        for peer, _, _ in plan.sends[coord]:
-            in_splits[peer] += n
-        for peer, _ in plan.recvs[coord]:
-            out_splits[peer] += n
-        buf = torch.cat([_cut(t, cut).reshape(-1)
-                         for _, _, cut in plan.sends[coord]]
-                        or [t.new_empty((0,))])
-        got = _exchange(buf, out_splits, in_splits, group, plan).split(n)
+        got = _send([(peer, _cut(t, cut)) for peer, _, cut in
+                     plan.sends[coord]],
+                    [peer for peer, _ in plan.recvs[coord]], group, plan, t)
         for (_, k), part in zip(plan.recvs[coord], got):
-            parts[k] = part.view(plan.piece)
+            parts[k] = part
         return tuple(parts)
 
     from torch.distributed.tensor.experimental import local_map
-    out = local_map(local, out_placements=(want,) * chunks,
-                    in_placements=(tuple(x.placements),),
-                    device_mesh=mesh)(x)
-    return out[0] if chunks == 1 else tuple(out)
+    return tuple(local_map(local, out_placements=(want,) * chunks,
+                           in_placements=(tuple(x.placements),),
+                           device_mesh=mesh)(x))
+
+
+class _Relocate(torch.autograd.Function):
+    """:func:`relocate`'s move, whose backward is the inverse move.
+
+    Each chunk's cotangent is first laid out as the chunk (as
+    :class:`_Constrain` lays it out), except that a pending partial sum
+    over a mesh dim that replicates both ``x`` and the chunk, and that no
+    part crosses, is kept: every device there returns its own partial
+    part.  A cotangent replicated over a mesh dim is returned by the
+    devices at coordinate 0 of it alone (the others hold the same values)
+    unless the dim replicates ``x`` and no part crosses it, where every
+    device returns its copy to a holder in its own slice and the gradient
+    stays replicated there.  Over every other mesh dim that replicates
+    ``x`` each cotangent lands on exactly one of the part's holders, the
+    others keep zeros there.  Where every chunk's cotangent was a kept
+    partial sum the gradient is left ``Partial()``, reduced where the next
+    redistribution asks for it (``layers._halves``: the FSDP gather's
+    reduce-scatter, which the weight's gradient takes anyway); elsewhere
+    it is all-reduced here (adding zeros to one value: the bits of the
+    gather-and-cut), so a consumer meets it replicated as it met the
+    gather-and-cut's."""
+
+    @staticmethod
+    def forward(ctx, x, plan, want, chunks):
+        ctx.set_materialize_grads(False)
+        ctx.plan, ctx.want, ctx.chunks = plan, want, chunks
+        ctx.src = tuple(x.placements)
+        ctx.global_shape, ctx.stride = x.shape, x.stride()
+        local = x.to_local()
+        ctx.local_shape, ctx.dtype = local.shape, local.dtype
+        return _moved(x, plan, want, chunks)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        plan, want, src = ctx.plan, ctx.want, ctx.src
+        mesh = next(g for g in grads if g is not None).device_mesh
+        kept = [i for i, s in enumerate(src)
+                if s.is_replicate() and i not in plan.dims]
+        laid = []
+        for g in grads:
+            if g is not None:
+                place = tuple(
+                    Partial() if i in kept and w.is_replicate()
+                    and p.is_partial() else w
+                    for i, (p, w) in enumerate(zip(g.placements, want)))
+                if tuple(g.placements) != place:
+                    g = g.redistribute(mesh, place)
+            laid.append(g)
+        # a mesh dim that replicates x keeps the gradient replicated where
+        # every chunk's cotangent is replicated there too
+        whole = [i for i in kept if all(
+            g is None or g.placements[i].is_replicate() for g in laid)]
+        once = tuple(None if g is None else tuple(
+            i for i, p in enumerate(g.placements)
+            if p.is_replicate() and i not in whole) for g in laid)
+        back = _returns(tuple(mesh.shape), tuple(ctx.global_shape), src,
+                        want, ctx.chunks, once)
+        coord = tuple(mesh.get_coordinate())
+        local = [None if g is None else g.to_local() for g in laid]
+        out = torch.zeros(ctx.local_shape, dtype=ctx.dtype,
+                          device=next(t for t in local
+                                      if t is not None).device)
+        got = _send([(peer, local[k]) for peer, k in back.sends[coord]],
+                    [peer for peer, _, _ in back.recvs[coord]],
+                    _group(mesh, plan), back, out)
+        for (_, _, cut), piece in zip(back.recvs[coord], got):
+            _cut(out, cut).add_(piece)
+        # kept partial sums stay partial; any other gradient over a dim
+        # that replicates x is reduced below
+        partial = [i for i in kept if all(
+            g is None or g.placements[i].is_partial() for g in laid)]
+        place = tuple(Partial() if s.is_replicate() and i not in whole
+                      else s for i, s in enumerate(src))
+        grad = DTensor.from_local(out, mesh, place, run_check=False,
+                                  shape=ctx.global_shape, stride=ctx.stride)
+        reduced = tuple(Replicate() if p.is_partial() and i not in partial
+                        else p for i, p in enumerate(place))
+        if reduced != place:
+            grad = grad.redistribute(mesh, reduced)
+        return grad, None, None, None
+
+
+def _send(parts: list, peers: list, group, plan, like) -> list:
+    """Each (group rank, part) of ``parts`` sent to that rank and the
+    parts from ``peers`` (group ranks, in the order they come) returned,
+    each of ``plan.piece``'s shape: one exchange over ``group``, or none
+    where it is None (every part is where it is wanted)."""
+    if group is None:
+        return [t for _, t in parts]
+    n = math.prod(plan.piece)
+    in_splits, out_splits = [0] * plan.size, [0] * plan.size
+    for peer, _ in parts:
+        in_splits[peer] += n
+    for peer in peers:
+        out_splits[peer] += n
+    buf = torch.cat([t.reshape(-1) for _, t in parts]
+                    or [like.new_empty((0,))])
+    got = _exchange(buf, out_splits, in_splits, group, plan)
+    return [t.view(plan.piece) for t in got.split(n)] if peers else []
+
+
+def _group(mesh, plan):
+    """The process group ``plan``'s parts cross: a mesh dim's, the
+    world's, or None where every device keeps its own."""
+    if len(plan.dims) == 1:
+        return mesh.get_group(plan.dims[0])
+    return _world_group(mesh) if plan.dims else None
 
 
 def _cut(t, cut: tuple):
@@ -384,11 +495,13 @@ class _Relocation:
     """The moves of :func:`relocate`, by device coordinate: ``sends``
     (the receiver's rank in the group, chunk, block of the sender's part)
     and ``recvs`` (the sender's rank in the group, chunk), each in the
-    order the buffers lay them out.  ``dims`` are the mesh dims the parts
-    cross (none: every device keeps its own), ``size`` their group's
-    ranks, ``piece`` a part's local shape; ``most_sent`` and
-    ``most_received`` count the parts the busiest device sends to others
-    and takes from them."""
+    order the buffers lay them out; of their inverse (:func:`_returns`),
+    ``sends`` (the rank a cotangent goes back to, chunk) and ``recvs``
+    (the rank it comes from, chunk, block it is written at).  ``dims``
+    are the mesh dims the parts cross (none: every device keeps its
+    own), ``size`` their group's ranks, ``piece`` a part's local shape;
+    ``most_sent`` and ``most_received`` count the parts the busiest
+    device sends to others and takes from them."""
     dims: tuple
     size: int
     piece: tuple
@@ -509,3 +622,34 @@ def _relocation(sizes, shape, src, want, chunks):
         most_sent=best[0],
         most_received=max(collections.Counter(c for c, _ in away).values(),
                           default=0))
+
+
+@functools.lru_cache(maxsize=256)
+def _returns(sizes, shape, src, want, chunks, once):
+    """The inverse of :func:`_relocation`'s moves (the same arguments), as
+    a :class:`_Relocation` whose ``sends`` are the forward's ``recvs`` and
+    whose ``recvs`` (with the block each part is written at) are its
+    ``sends``: each receiver returns a chunk's cotangent to the part's
+    sender.  ``once`` gives, chunk by chunk, the mesh dims over which only
+    the devices at coordinate 0 return it (the cotangent is replicated
+    there), or None for a chunk without one."""
+    plan = _relocation(sizes, shape, src, want, chunks)
+    coords = list(itertools.product(*(range(m) for m in sizes)))
+
+    def peer(c, r):                      # the device of group rank r
+        if len(plan.dims) != 1:
+            return coords[r]
+        return c[:plan.dims[0]] + (r,) + c[plan.dims[0] + 1:]
+
+    def returns(c, k):
+        return once[k] is not None and all(c[i] == 0 for i in once[k])
+    sends = {c: [(r, k) for r, k in plan.recvs[c] if returns(c, k)]
+             for c in coords}
+    recvs = {c: [(r, k, cut) for r, k, cut in plan.sends[c]
+                 if returns(peer(c, r), k)] for c in coords}
+    return dataclasses.replace(
+        plan, sends=sends, recvs=recvs,
+        most_sent=max((sum(peer(c, r) != c for r, _ in v)
+                       for c, v in sends.items()), default=0),
+        most_received=max((sum(peer(c, r) != c for r, _, _ in v)
+                           for c, v in recvs.items()), default=0))

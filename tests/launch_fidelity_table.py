@@ -119,7 +119,8 @@ def _dims(shape: str) -> str:
 
 def part_dims(cfg, shape: str, multi_pod: bool) -> tuple:
     """(cache dims, weight dims) of the cell, as the decode fidelity test
-    shapes them: each KV cache leaf's part and one layer of it; each
+    shapes them: each KV cache leaf's part and one layer of it (a decode
+    cell's; a train or prefill cell has no cache, so none); each
     weight's local part, with and without its FSDP dim gathered, and one
     layer of each."""
     from repro_torch.launch.dryrun import state_specs
@@ -134,7 +135,9 @@ def part_dims(cfg, shape: str, multi_pod: bool) -> tuple:
         {_dims(local_shape(tuple(s), e, mesh)),
          _dims(local_shape(tuple(s), e, mesh)[1:])}),
         state_specs(cfg, mesh).params, param_shapes(cfg))
-    return cache_parts(cfg, shape, mesh), local | weight_parts(cfg, mesh)
+    cache = cache_parts(cfg, shape, mesh) if SHAPES[shape].kind == \
+        "decode" else set()
+    return cache, local | weight_parts(cfg, mesh)
 
 
 def named(kind: str, ref: dict, port_bytes: int, port_coll: float,

@@ -7,7 +7,14 @@
   (x, z) halves: ``model``) or over the whole mesh (one lane's ring cache,
   its context moving from ``data`` to ``model``), and no all-gather;
   ``roofline.link_bytes`` counts the row as the bytes sent, the
-  reference analyzer's count of a collective-permute.
+  reference analyzer's count of a collective-permute.  Under autograd
+  the backward's inverse move is one more collective-permute with the
+  same bytes, and still no all-gather (the ring cache, replicated over
+  ``model``, which its parts cross, adds its gradient's all-reduce there).
+* falcon-mamba-7b prefill_32k (full width, 2 layers): the in-projection's
+  halves move point to point (``layers._halves``): no all-gather of a
+  device's part of the weight (``4096x1024``) over ``model``, and two
+  half-parts (``4096x512``) a device a layer.
 * recurrentgemma-9b long_500k (full width, 3 layers): attention's value
   product runs with the heads split over the idle ``data`` axis and the
   keys on ``model`` (``bmm 1x1x128,1x128x256`` a device), the layout the
@@ -63,6 +70,60 @@ def test_recorder_counts_a_relocation(case):
     assert tot["coll_bytes"] == sent * nbytes
     assert tot["coll_breakdown"] == {
         "collective_permute|" + ",".join(crossed): sent * nbytes}
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_recorder_counts_a_relocation_and_its_inverse(case):
+    name, shape, entries, axes, chunks, (sent, taken), crossed, size = case
+    with make_local_mesh(4, 4) as mesh, use_mesh(mesh):
+        recorder = dryrun.OpRecorder(dryrun._groups(mesh))
+        x = dryrun._dtensor(mesh, shape, torch.float32, entries)
+        x.requires_grad_(True)
+        with dryrun.sharded_execution(mesh, recorder):
+            out = relocate(x, *axes, chunks=chunks)
+            out = out if chunks > 1 else (out,)
+            torch.autograd.backward(out, [torch.ones_like(t) for t in out])
+        assert tuple(x.grad.shape) == shape
+        assert x.grad.to_local().shape == x.to_local().shape
+    part = tuple(out[0].to_local().shape)
+    local = "x".join(map(str, x.to_local().shape))
+    rows = [r for r in recorder.record() if r["op"].startswith("_c10d")
+            and r["op"] != "_c10d_functional._wrap_tensor_autograd"]
+    # x replicated over a mesh dim the parts cross (the ring cache on
+    # model): each cotangent came back to one holder, and the gradient is
+    # all-reduced there; no all-gather either way
+    reduced = [r for r in rows if r["op"] == "_c10d_functional.all_reduce"]
+    assert [(r["shapes"], r["axes"], r["calls"]) for r in reduced] == (
+        [(local, ["model"], 1)] if name == "ring_cache" else [])
+    rows = [r for r in rows if r not in reduced]
+    assert {r["op"] for r in rows} == {"_c10d_functional.collective_permute"}
+    nbytes = 4 * torch.Size(part).numel()
+    # forward and backward: the inverse sends what the forward took
+    assert sum(r["calls"] for r in rows) == 2
+    assert all(r["axes"] == crossed and r["group_size"] == size
+               and r["shapes"].split(",")[0] == "x".join(map(str, part))
+               for r in rows)
+    assert sorted((r["in_bytes"], r["out_bytes"]) for r in rows
+                  for _ in range(r["calls"])) == sorted(
+        [(sent * nbytes, taken * nbytes), (taken * nbytes, sent * nbytes)])
+
+
+def test_falcon_prefill_moves_the_in_projection_halves(tmp_path):
+    res = dryrun.run_cell("falcon-mamba-7b", "prefill_32k", multi_pod=False,
+                          cfg_overrides={"n_layers": 2}, out_dir=tmp_path)
+    with open(res["ops_path"]) as f:
+        rows = json.load(f)
+    gathers = [r for r in rows
+               if r["op"] == "_c10d_functional.all_gather_into_tensor"
+               and r["shapes"].split(",")[0] == "4096x1024"
+               and r["axes"] == ["model"]]
+    assert not gathers
+    permutes = [r for r in rows
+                if r["op"] == "_c10d_functional.collective_permute"]
+    assert [(r["shapes"].split(",")[0], r["axes"], r["calls"])
+            for r in permutes] == [("4096x512", ["model"], 2)]
+    # at most two half-parts a device a layer, bf16
+    assert permutes[0]["in_bytes"] <= 2 * 4096 * 512 * 2
 
 
 def test_link_bytes_of_a_permute_is_what_a_device_sends():
