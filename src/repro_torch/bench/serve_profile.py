@@ -44,8 +44,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from .. import spans
 from ..configs import get_config
 from ..device import resolve_device
 from ..kernels.ticket_dispatch import assign_slots
@@ -70,18 +71,15 @@ def host_us(fn, n: int = 2000) -> float:
     return 1e6 * t / n
 
 
-SPANS = ("serve.prefill", "serve.step")
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel",
                 "rglru_scan_kernel")
 
 
 def _device_events(prof):
-    """The device's own events (kernels, copies), without the spans that
-    ``record_function`` mirrors onto the device timeline."""
+    """The device's own events (kernels, copies)."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in SPANS]
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _device_us(prof, name_part: str) -> tuple[float, int]:
@@ -150,6 +148,20 @@ def moe_plan(dev, arch: str) -> dict:
     return row
 
 
+def phase_seconds(recorded) -> tuple[float, float]:
+    """Prefill and decode seconds from the engine's spans: every
+    ``serve.admit``, and every ``serve.step`` less the admissions inside
+    it."""
+    steps = {s.id for s in recorded if s.name == "serve.step"}
+    prefill_s = sum(s.end - s.start for s in recorded
+                    if s.name == "serve.admit")
+    decode_s = sum(s.end - s.start for s in recorded
+                   if s.name == "serve.step") - sum(
+        s.end - s.start for s in recorded
+        if s.name == "serve.admit" and s.parent in steps)
+    return prefill_s, decode_s
+
+
 def serve(dev, out_dir: Path | None, arch: str) -> dict:
     cfg = get_config(arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -158,29 +170,8 @@ def serve(dev, out_dir: Path | None, arch: str) -> dict:
     prompts = [rng.integers(1, cfg.vocab, size=int(rng.integers(64, 257)))
                .tolist() for _ in range(8)]
 
-    def run(max_new: int, timed: dict | None = None):
+    def run(max_new: int):
         eng = ServeEngine(cfg, params, lanes=8, max_ctx=512, device=dev)
-        admit, step = eng._admit, eng.step
-
-        inside = []
-
-        def spans(name, fn):
-            def wrapped(*args):
-                t = time.perf_counter()
-                inside.append(name)
-                with record_function(name):
-                    out = fn(*args)
-                inside.pop()
-                if timed is not None:
-                    key = name + ("_in_step" if "serve.step" in inside
-                                  else "")
-                    timed[key] = timed.get(key, 0.0) + (
-                        time.perf_counter() - t)
-                return out
-            return wrapped
-
-        eng._admit = spans("serve.prefill", admit)
-        eng.step = spans("serve.step", step)
         for p in prompts:
             eng.submit(p, max_new_tokens=max_new)
         eng.run()
@@ -188,19 +179,18 @@ def serve(dev, out_dir: Path | None, arch: str) -> dict:
         return eng
 
     run(2)                                            # warm-up
-    timed: dict = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        spans.enable()
         t0 = time.perf_counter()
-        eng = run(8, timed)
+        eng = run(8)
         wall = time.perf_counter() - t0
+        spans.disable()
+    prefill_s, decode_s = phase_seconds(spans.collect())
     by_kernel: dict = {}
     for e in _device_events(prof):
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time
     busy_us = sum(by_kernel.values())
-    prefill_s = timed.get("serve.prefill", 0.0) + timed.get(
-        "serve.prefill_in_step", 0.0)
-    decode_s = timed["serve.step"] - timed.get("serve.prefill_in_step", 0.0)
     port_kernels = {}
     for name in PORT_KERNELS:
         us, n = _device_us(prof, name)
@@ -211,8 +201,8 @@ def serve(dev, out_dir: Path | None, arch: str) -> dict:
     avg = prof.key_averages()
     top_dev = sorted(by_kernel.items(), key=lambda kv: kv[1],
                      reverse=True)[:8]
-    top_cpu = sorted((e for e in avg if e.key not in SPANS),
-                     key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    top_cpu = sorted(avg, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:8]
     if out_dir is not None:
         (out_dir / f"serve_profile_{cfg.name}.txt").write_text(
             avg.table(sort_by="self_cpu_time_total", row_limit=40)

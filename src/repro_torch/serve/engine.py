@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import spans
 from ..configs.base import ArchConfig
 from ..kernels.mamba_scan.ops import MODES as SCAN_MODES
 from ..kernels.ticket_dispatch.ops import PLAN_MODES
@@ -176,28 +177,33 @@ class ServeEngine:
         return toks.cpu().numpy()
 
     def _admit(self, lane: int, req: Request) -> None:
-        L = len(req.prompt)
-        if L + req.max_new_tokens > self.max_ctx:
-            raise ValueError(f"request {req.rid} exceeds the context: "
-                             f"{L} + {req.max_new_tokens} > {self.max_ctx}")
-        Lp = -(-L // self.pad_to) * self.pad_to
-        tokens = np.zeros((1, Lp), np.int64)
-        tokens[0, :L] = req.prompt
-        logits, _, new_cache = forward(
-            self.params, {"tokens": torch.from_numpy(tokens).to(self.device)},
-            self.cfg, dispatch=self.dispatch, scan=self.scan,
-            collect_cache=True)
-        insert_prefill(self.cache, new_cache, lane)
-        first = int(self._sample(logits[0, L - 1][None])[0])
-        self.prefill_count += 1
-        self.lane_req[lane] = req
-        self.lane_pos[lane] = L
-        self.lane_last[lane] = first
-        req.admitted_at_step = self.step_count
-        if self.recorder is not None:
-            self.recorder.on_grant(req.ticket)
-        req.tokens_out.append(first)
-        self._finish_if_done(lane)
+        with spans.span("serve.admit", rid=req.ticket):
+            L = len(req.prompt)
+            if L + req.max_new_tokens > self.max_ctx:
+                raise ValueError(
+                    f"request {req.rid} exceeds the context: "
+                    f"{L} + {req.max_new_tokens} > {self.max_ctx}")
+            Lp = -(-L // self.pad_to) * self.pad_to
+            tokens = np.zeros((1, Lp), np.int64)
+            tokens[0, :L] = req.prompt
+            with spans.span("serve.prefill", rid=req.ticket):
+                logits, _, new_cache = forward(
+                    self.params,
+                    {"tokens": torch.from_numpy(tokens).to(self.device)},
+                    self.cfg, dispatch=self.dispatch, scan=self.scan,
+                    collect_cache=True)
+                insert_prefill(self.cache, new_cache, lane)
+            with spans.span("serve.first_token", rid=req.ticket):
+                first = int(self._sample(logits[0, L - 1][None])[0])
+            self.prefill_count += 1
+            self.lane_req[lane] = req
+            self.lane_pos[lane] = L
+            self.lane_last[lane] = first
+            req.admitted_at_step = self.step_count
+            if self.recorder is not None:
+                self.recorder.on_grant(req.ticket)
+            req.tokens_out.append(first)
+            self._finish_if_done(lane)
 
     def _finish_if_done(self, lane: int) -> None:
         req = self.lane_req[lane]
@@ -238,24 +244,29 @@ class ServeEngine:
 
     def step(self) -> int:
         """Admit + one decode step across all lanes; returns #active lanes."""
-        self._fill_free_lanes()
-        active = self._active()
-        if not active:
-            return 0
-        tokens = torch.from_numpy(self.lane_last[:, None].astype(np.int64))
-        pos = torch.from_numpy(self.lane_pos.astype(np.int64))
-        logits, self.cache = decode_step(
-            self.params, self.cache, tokens.to(self.device),
-            pos.to(self.device), self.cfg, dispatch=self.dispatch,
-            scan=self.scan)
-        next_tok = self._sample(logits)
-        self.step_count += 1
-        for lane in active:
-            self.lane_pos[lane] += 1
-            self.lane_last[lane] = next_tok[lane]
-            self.lane_req[lane].tokens_out.append(int(next_tok[lane]))
-            self._finish_if_done(lane)
-        return len(active)
+        with spans.span("serve.step"):
+            self._fill_free_lanes()
+            active = self._active()
+            if not active:
+                return 0
+            tokens = torch.from_numpy(
+                self.lane_last[:, None].astype(np.int64))
+            pos = torch.from_numpy(self.lane_pos.astype(np.int64))
+            with spans.span("serve.decode"):
+                logits, self.cache = decode_step(
+                    self.params, self.cache, tokens.to(self.device),
+                    pos.to(self.device), self.cfg, dispatch=self.dispatch,
+                    scan=self.scan)
+            with spans.span("serve.next_tokens"):
+                next_tok = self._sample(logits)
+                self.step_count += 1
+                for lane in active:
+                    self.lane_pos[lane] += 1
+                    self.lane_last[lane] = next_tok[lane]
+                    self.lane_req[lane].tokens_out.append(
+                        int(next_tok[lane]))
+                    self._finish_if_done(lane)
+            return len(active)
 
     def run(self, max_steps: int = 10_000) -> None:
         """Drive until all submitted requests complete."""

@@ -47,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..device import resolve_device
 from . import isa
 from .costs import (DEFAULT_COSTS, I_ATOMIC, I_HIT, I_INV, I_LOCAL, I_MISS,
@@ -960,24 +961,30 @@ def run_sweep(programs: np.ndarray, *, mem_words: int, n_locks: int,
         raise ValueError("chunk only applies to mode='torch'")
     if mode == "torch" and cuda_state != "auto":
         raise ValueError("cuda_state only applies to mode='cuda'")
-    args = sweep_inputs(
-        programs, mem_words=mem_words, init_pc=init_pc, init_regs=init_regs,
-        n_active=n_active, seeds=seeds, wa_base=wa_base, wa_size=wa_size,
-        horizon=horizon, max_events=max_events, costs=costs,
-        init_mem=init_mem, faults=faults, device=dev)
-    if mode == "cuda":
-        from .engine_cuda import run_cells as run_kernel
-        out = run_kernel(*args, n_locks=n_locks, cuda_state=cuda_state)
-    else:
-        out = run_cells(*args, n_locks=n_locks, chunk=chunk)
-    res = {k: out[k].cpu().numpy() for k in OUT_KEYS}
+    with spans.span("sweep.upload"):
+        args = sweep_inputs(
+            programs, mem_words=mem_words, init_pc=init_pc,
+            init_regs=init_regs, n_active=n_active, seeds=seeds,
+            wa_base=wa_base, wa_size=wa_size, horizon=horizon,
+            max_events=max_events, costs=costs, init_mem=init_mem,
+            faults=faults, device=dev)
+    with spans.span("sweep.kernel"):
+        if mode == "cuda":
+            from .engine_cuda import run_cells as run_kernel
+            out = run_kernel(*args, n_locks=n_locks, cuda_state=cuda_state)
+        else:
+            out = run_cells(*args, n_locks=n_locks, chunk=chunk)
+    with spans.span("sweep.readback"):
+        res = {k: out[k].cpu().numpy() for k in OUT_KEYS}
     res["mode"] = mode
     n_cells, n_threads = np.shape(init_pc)
-    res["pad_stats"] = _pad_stats(
-        programs, _broadcast_cells(n_active, n_cells, np.int32), n_threads,
-        res["events"],
-        _broadcast_cells(mem_words if live_mem_words is None
-                         else live_mem_words, n_cells, np.int64), mem_words)
+    with spans.span("sweep.pad_stats"):
+        res["pad_stats"] = _pad_stats(
+            programs, _broadcast_cells(n_active, n_cells, np.int32),
+            n_threads, res["events"],
+            _broadcast_cells(mem_words if live_mem_words is None
+                             else live_mem_words, n_cells, np.int64),
+            mem_words)
     return res
 
 

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import spans
 from . import engine
 from .costs import DEFAULT_COSTS, Costs
 from .faults import FaultSchedule, draw_schedule, stack_schedules
@@ -197,17 +198,24 @@ def run_sweeps(specs, *, mode: str = "auto", chunk: int | None = None,
     With ``$REPRO_RESULTS_STORE`` set, every cell is appended to that
     results store once, here (:func:`run_sweep` goes through this call).
     """
-    programs, kwargs, rows = sweep_engine_args(specs)
-    raw = engine.run_sweep(programs, **kwargs, mode=mode, chunk=chunk,
-                           device=device)
-    out = [[] for _ in specs]
-    for i, (k, spec, cell, layout, sched) in enumerate(rows):
-        out[k].append(_result_row(spec, cell, layout, sched, raw, i))
-    store_path = os.environ.get(RESULTS_STORE_ENV)
-    if store_path:
-        from .results.store import ResultsStore
-        ResultsStore(store_path).append_sweep(
-            [res for results in out for res in results])
+    with spans.span("sweep.run") as sp:
+        with spans.span("sweep.build"):
+            programs, kwargs, rows = sweep_engine_args(specs)
+        raw = engine.run_sweep(programs, **kwargs, mode=mode, chunk=chunk,
+                               device=device)
+        with spans.span("sweep.rows"):
+            out = [[] for _ in specs]
+            for i, (k, spec, cell, layout, sched) in enumerate(rows):
+                out[k].append(_result_row(spec, cell, layout, sched, raw, i))
+            store_path = os.environ.get(RESULTS_STORE_ENV)
+            if store_path:
+                from .results.store import ResultsStore
+                ResultsStore(store_path).append_sweep(
+                    [res for results in out for res in results])
+        if sp:
+            sp.count("cells", len(rows))
+            sp.count("sum_events", raw["pad_stats"]["sum_events"])
+            sp.count("max_events", raw["pad_stats"]["max_events"])
     return out
 
 

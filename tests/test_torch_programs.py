@@ -192,7 +192,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch``, its subpackages (the lockVM, core — every module:
     the host locks, the KV stores, the distributed locks, the complexity
     measure — configs, the ticket-dispatch, selective-scan and RG-LRU
-    kernels, models, serve, the runtime, data, optimizer, train-step and
+    kernels, models, serve, the span recorder, the runtime, data, optimizer, train-step and
     checkpoint modules, both launchers, the launch tools — the shape cells,
     sharding rules and activation constraints, the fake-process-group
     mesh (made once), input specs, the dry run, the roofline and the
@@ -216,6 +216,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.kernels.rglru.kernel
         import repro_torch.kernels.rglru.ops
         import repro_torch.models.model, repro_torch.serve
+        import repro_torch.spans
         import repro_torch.launch.serve
         import repro_torch.bench.serve_profile
         import repro_torch.bench.kernel_bounds
