@@ -114,16 +114,26 @@ scripts — through the entry points a user calls, and checks them:
    batched, h0-threaded and mixed-dtype cases; its time at the full-width
    prefill (back-to-back calls, and the kernel alone under
    ``torch.profiler``) beside the plain loop's.
+7b. conv kernel vs plain: the causal conv kernel (the Mamba mixer's
+   depthwise conv with its bias and SiLU) against the plain version at
+   falcon-mamba-7b's prefill (d_inner 8,192, width 4, x the in-projection's
+   strided half) at S 256, 2,048 and 10,857 in bf16 and 256 in float32,
+   and small, ragged, batched cases: within ``kernel_pair.conv_bound``,
+   in bf16 bit for bit on all but at most 1e-5 of the elements, tails
+   equal; its time alone at the three prompt lengths beside its bytes
+   bound, the plain version's and ``F.conv1d``'s
+   (``kernel_pair.conv_times``).
 8. serve_mamba: the same traffic on falcon-mamba-7b at full width (64
    layers, d 4,096, bf16, random weights from a seeded generator): every
-   prefill goes through the scan kernel once per layer, decode through
-   none.  A second run with ``scan="torch"`` (the plain loop, whose state
-   is bf16 where the kernel's is float32) must give the same first token
-   wherever its top-2 margin exceeds twice the largest first-token logit
-   difference.  Where the two runs' token streams part, the first parting
-   step's top-2 margins and |Δlogit|; then the same pair in float32 (the
-   weights cast, ``dtype="float32"``), which may part on no more streams,
-   with a first-token logit difference at most a tenth of bf16's.  A
+   prefill goes through the conv and scan kernels once per layer, decode
+   through neither.  A second run with ``scan="torch"`` (the plain
+   versions; the scan loop's state is bf16 where the kernel's is float32)
+   must give the same first token wherever its top-2 margin exceeds twice
+   the largest first-token logit difference.  Where the two runs' token
+   streams part, the first parting step's top-2 margins and |Δlogit|;
+   then the same pair in float32 (the weights cast, ``dtype="float32"``),
+   which may part on no more streams, with a first-token logit difference
+   at most a tenth of bf16's.  A
    reduced float32 model on the card agrees with the same model on the
    CPU.
 9. RG-LRU kernel vs plain: the RG-LRU scan kernel against the plain loop
@@ -1009,18 +1019,21 @@ def scan_pairs(dev, cfg, params, ServeEngine, kernel, prompts, max_ctx,
                 "largest |dlogit|"}
 
 
-def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
+def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel, conv) -> dict:
     """Serve the same traffic on falcon-mamba-7b at full width through the
-    scan kernel (``scan="auto"``): each prefill launches it once per layer,
-    decode never.  Then the same prompts with ``scan="torch"``, the plain
-    loop in bf16, held to :func:`margin_rule`; then both pairs of
-    :func:`scan_pairs`."""
+    scan and conv kernels (``scan="auto"``): each prefill launches each once
+    per layer, decode never.  Then the same prompts with ``scan="torch"``,
+    the plain versions (the scan loop in bf16), held to
+    :func:`margin_rule`; then both pairs of :func:`scan_pairs`."""
     prompts = serve_prompts(cfg)
     every = range(len(prompts))
 
     def run(scan, max_new, keep=()):
-        return timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
-                           kernel, scan=scan, keep=keep)
+        n = conv.launches
+        out = timed_serve(ServeEngine, cfg, params, dev, prompts, max_new,
+                          kernel, scan=scan, keep=keep)
+        out["conv_launches"] = conv.launches - n
+        return out
 
     t0 = time.perf_counter()
     run("auto", 2)                      # warm-up: allocator, GEMM plans
@@ -1033,10 +1046,13 @@ def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
     # every launch came from a prefill: decode launched none
     assert auto["launches"] == sum(auto["prefill_launches"]) \
         == cfg.n_layers * SERVE_REQUESTS, auto["launches"]
+    assert auto["conv_launches"] == cfg.n_layers * SERVE_REQUESTS, \
+        auto["conv_launches"]
     t_plain = time.perf_counter()
     plain = run("torch", SERVE_NEW, every)
     plain_s = time.perf_counter() - t_plain
-    assert plain["launches"] == 0, plain["launches"]
+    assert plain["launches"] == plain["conv_launches"] == 0, (
+        plain["launches"], plain["conv_launches"])
     check_served(plain, cfg, SERVE_REQUESTS)
     margins = margin_rule(auto, plain, cfg)
     times, p_times = serve_times(auto), serve_times(plain)
@@ -1051,6 +1067,7 @@ def serve_mamba_phase(dev, cfg, params, ServeEngine, kernel) -> dict:
             "gate": auto["stats"]["lock"], "prefills": auto["prefills"],
             "decode_steps": auto["steps"],
             "scan_launches": auto["launches"], "decode_scan_launches": 0,
+            "conv_launches": auto["conv_launches"],
             **times, "prefill_ms": [1e3 * t for t in auto["prefill_s"]],
             "peak_memory_bytes": peak,
             "plain_scan": {"requests": SERVE_REQUESTS, "seconds": plain_s,
@@ -1529,6 +1546,52 @@ def scan_phase(dev, kernel, ref) -> dict:
                       "device_ms": device_ms, "launch_floor_ms": floor_ms,
                       "plain_ms": plain_ms,
                       "bound_ms": bound, "bound_by": bound_by}}
+
+
+def conv_phase(dev, kernel, ref) -> dict:
+    """The conv kernel against the plain version (within ``conv_bound``; in
+    bf16 bit for bit but on at most 1e-5 of the elements; tails equal) at
+    falcon-mamba-7b's prefill and small cases, and its time at the
+    prefill's lengths."""
+    from repro_torch.bench.kernel_pair import (conv_bound, conv_times,
+                                               ulps_apart)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sets = []
+    for B, S, d, kw, dtype, strided in (
+            (1, 256, 8192, 4, "bf16", True), (1, 2048, 8192, 4, "bf16", True),
+            (1, 10857, 8192, 4, "bf16", True), (1, 256, 8192, 4, "f32", True),
+            (1, 1, 64, 4, "bf16", True), (3, 2, 20, 4, "f32", True),
+            (3, 257, 20, 4, "bf16", False), (2, 9, 24, 2, "f32", False),
+            (2, 33, 24, 3, "bf16", True)):
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        full = torch.randn((B, S, 2 * d), generator=gen, device=dev).to(dt)
+        x = full.chunk(2, -1)[0] if strided else full[..., :d].clone(
+            memory_format=torch.contiguous_format)
+        w = (0.5 * torch.randn((d, kw), generator=gen, device=dev)).to(dt)
+        b = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dt)
+        y, tail = kernel.causal_conv(x, w, b)
+        ry, rtail = ref.causal_conv_ref(x, w, b)
+        torch.cuda.synchronize()
+        name = f"B{B}_S{S}_d{d}_kw{kw}_{dtype}"
+        assert y.dtype == tail.dtype == dt, name
+        assert torch.equal(tail, rtail), name
+        ulps = ulps_apart(y, ry)
+        err = (y.double() - ry.double()).abs()
+        assert bool((err <= conv_bound(x, w, b, ry)).all()), name
+        if dt == torch.bfloat16:
+            assert float((ulps > 0).float().mean()) <= 1e-5, name
+        sets.append({"set": name, "strided": strided,
+                     "max_ulps": int(ulps.max()),
+                     "differing_share": float((ulps > 0).float().mean()),
+                     "max_abs_err": float((y.float() - ry.float()).abs()
+                                          .max())})
+    timed = conv_times(dev)
+    return {"phase": "conv_kernel_vs_plain",
+            "tolerance": "conv_bound; bf16 differing on at most 1e-5",
+            "seconds": time.perf_counter() - t0, "sets": sets,
+            "timed": timed}
 
 
 def rglru_cases(dev) -> list:
@@ -3405,6 +3468,8 @@ def main() -> int:
     from repro_torch.bench import run as bench_run
     from repro_torch.bench.fig13_serve_e2e import TRACE_ENV
     from repro_torch.configs import get_config
+    from repro_torch.kernels.causal_conv import kernel as conv_kernel
+    from repro_torch.kernels.causal_conv import ref as conv_ref
     from repro_torch.kernels.mamba_scan import kernel as scan_kernel
     from repro_torch.kernels.mamba_scan import ref as scan_ref
     from repro_torch.kernels.rglru import kernel as rglru_kernel
@@ -3637,6 +3702,10 @@ def main() -> int:
     scan = scan_phase(dev, scan_kernel, scan_ref)
     emit(scan)
 
+    # ---- 7b. the conv kernel against its plain version
+    conv = conv_phase(dev, conv_kernel, conv_ref)
+    emit(conv)
+
     # ---- 8. serve falcon-mamba-7b at full width
     t0 = time.perf_counter()
     mcfg = get_config(MAMBA_ARCH)
@@ -3644,7 +3713,8 @@ def main() -> int:
         0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    mamba = serve_mamba_phase(dev, mcfg, params, ServeEngine, scan_kernel)
+    mamba = serve_mamba_phase(dev, mcfg, params, ServeEngine, scan_kernel,
+                              conv_kernel)
     mamba["init_params_s"] = init_s
     small = mcfg.reduced()
     mamba["small_model"] = small_model_phase(dev, small, model, scan_kernel,
@@ -3817,6 +3887,19 @@ def main() -> int:
         "bound_ms": scan["timed"]["bound_ms"],
         "bound_by": scan["timed"]["bound_by"], "library_ms": None,
         "timed_on": "falcon-mamba-7b prefill: L 256, D 8192, N 16, bf16"}, {
+        "name": "causal_conv_run", "route": "cuda",
+        "source": "src/repro_torch/csrc/causal_conv.cu",
+        "replaces": None, "replaces_why": "the reference's conv is plain XLA",
+        "launches": mamba["conv_launches"],
+        "max_ulps": max(c["max_ulps"] for c in conv["sets"]),
+        "device_ms": conv["timed"]["S2048"]["kernel_ms"],
+        "launch_floor_ms": conv["timed"]["S2048"]["launch_floor_ms"],
+        "plain_ms": conv["timed"]["S2048"]["plain_ms"],
+        "bound_ms": conv["timed"]["S2048"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": conv["timed"]["S2048"]["library_ms"],
+        "timed_on": "falcon-mamba-7b prefill conv: S 2048, d_inner 8192, "
+                    "width 4, bf16",
+        "by_length": conv["timed"]}, {
         "name": "rglru_scan_run", "route": "cuda",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru/kernel.py:94",

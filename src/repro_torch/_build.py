@@ -21,7 +21,9 @@ bits
 (:mod:`repro_torch.kernels.mamba_scan.kernel`), and the RG-LRU scan's
 channels and threads a block, steps a stage, stages of the ring and
 input dtype bits
-(:mod:`repro_torch.kernels.rglru.kernel`).  A library's name
+(:mod:`repro_torch.kernels.rglru.kernel`), and the causal conv's block
+size, channels a thread, rows in flight, range of widths and flag bits
+(:mod:`repro_torch.kernels.causal_conv.kernel`).  A library's name
 carries a hash of its sources and header, so an edit rebuilds and an
 unchanged tree reuses the earlier build.  :func:`load_libraries` starts one
 ``nvcc`` per library that is missing, all at once, and waits for them all.
@@ -114,6 +116,20 @@ def rglru_constants_header() -> str:
                       for name, bit in kernel.BF16_BITS.items()])
 
 
+def conv_constants_header() -> str:
+    """The C header of the causal conv kernel's launch constants."""
+    from .kernels.causal_conv import kernel
+
+    return _header("repro_torch.kernels.causal_conv.kernel",
+                   [("CC_THREADS", kernel.THREADS),
+                    ("CC_CHANNELS", kernel.CHANNELS),
+                    ("CC_UNROLL", kernel.UNROLL),
+                    ("CC_MIN_WIDTH", min(kernel.WIDTHS)),
+                    ("CC_MAX_WIDTH", max(kernel.WIDTHS))]
+                   + [(f"CC_FLAG_{name.upper()}", bit)
+                      for name, bit in kernel.FLAG_BITS.items()])
+
+
 def _header(origin: str, defs) -> str:
     lines = [f"// Generated by repro_torch/_build.py from {origin}.",
              "#pragma once"]
@@ -132,6 +148,8 @@ KERNELS = {
                    rglru_constants_header),
     "moe_plan": (("moe_plan.cu", "moe_plan_kernel.cuh",
                   "ticket_dispatch_kernel.cuh"), plan_constants_header),
+    "causal_conv": (("causal_conv.cu", "causal_conv_kernel.cuh"),
+                    conv_constants_header),
 }
 
 

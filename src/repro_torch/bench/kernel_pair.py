@@ -3,7 +3,7 @@ serve around them, for two source trees, on one card, in turns: a parent
 tree's and this one's.
 
     python src/repro_torch/bench/kernel_pair.py --parent PARENT [--out FILE]
-        [--parts lockvm,scan,rglru,ticket,moe,serve]
+        [--parts lockvm,scan,rglru,ticket,moe,serve,conv]
 
 PARENT is an unpacked checkout of the commit to compare with (for example
 ``git archive <commit> | tar -x -C local/parent``; ``local/`` is
@@ -34,6 +34,16 @@ times on the same inputs:
   256-token prefill, as each tree runs it by default: the wall ms per call
   with a synchronise, and its launches per call, split into the routing
   plan's and the rest (:func:`moe_launches`);
+* one falcon-mamba-7b layer's causal conv with its bias and SiLU, x the
+  in-projection's strided half at S 256, 2,048 and 10,857 x d_inner 8,192
+  in bf16: the plain path (the parent's stack of shifted copies, einsum,
+  bias and SiLU) in device ms from CUDA events, and the conv kernel, where
+  the tree has it, under ``torch.profiler`` beside the launch floor, its
+  bytes bound (x read once, y written once, at 3.35 TB/s) and its distance
+  from the plain path (``conv_bound``, and the share of elements that
+  differ); ``F.conv1d(groups=d_inner)``'s time
+  beside them as the library's figure (information only: the port never
+  calls it);
 * granite-moe-1b-a400m served at full width on ``chip_smoke.py``'s
   traffic (16 requests of 16-256 prompt tokens, 32 new tokens each, 8
   lanes, ``max_ctx`` 512, seeded weights): decode ms a step, prefill ms a
@@ -42,7 +52,8 @@ times on the same inputs:
 ``--parts`` picks some of these (all by default).
 
 ``chip_smoke.py`` times its kernels with this file's ``profiled_ms`` and
-holds the RG-LRU kernel to its ``outside_one_ulp`` rule.
+holds the RG-LRU kernel to its ``outside_one_ulp`` rule, and the conv
+kernel to the plain path by ``conv_bound`` and ``ulps_apart``.
 
 Each child prints one JSON line with its numbers, the card's name, power
 limit and SM clock (``nvidia-smi``, sampled while the lockVM kernel runs),
@@ -50,7 +61,9 @@ the ptxas report of the build and its outputs' fingerprints; the parent
 script checks that both trees' lockVM outputs are identical, that each
 scan is within 5e-2 of the plain loop on float32 casts, and that each
 RG-LRU output is within one ulp of bf16 of the float32 loop rounded to
-bf16 (and equal to it on float32 inputs), then prints a summary line (and
+bf16 (and equal to it on float32 inputs), and that each conv output is
+within ``conv_bound`` of the plain path's and equal to it on all but at
+most 1e-5 of the elements, its tail equal, then prints a summary line (and
 writes all lines to FILE).  Needs one CUDA device.
 
     python src/repro_torch/bench/kernel_pair.py --child $PWD
@@ -82,7 +95,12 @@ MOE_SHAPES = {"decode": (8, 1), "prefill_Lp256": (1, 256)}
 # 256-token prefill, 8 arrivals a token
 TICKET_ARRIVALS = {"decode": 64, "prefill_Lp256": 2048}
 SERVE_ARCH = "granite-moe-1b-a400m"
-PARTS = ("lockvm", "scan", "rglru", "ticket", "moe", "serve")
+# falcon-mamba-7b's conv: prompt lengths (256, the code-batch cell's mean
+# and longest), d_inner and width
+CONV_S = (256, 2048, 10857)
+CONV_D, CONV_KW = 8192, 4
+HBM_BYTES_PER_MS = 3.35e9        # the H100's 3.35 TB/s
+PARTS = ("lockvm", "scan", "rglru", "ticket", "moe", "serve", "conv")
 # the runtime calls that launch a kernel, as the profiler names them
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
                 "cuLaunchKernel")
@@ -225,6 +243,139 @@ def outside_one_ulp(got, want) -> float:
     r = want.to(got.dtype).float()
     limit = 1e-6 + torch.finfo(got.dtype).eps * r.abs()
     return float(((got.float() - r).abs() > limit).float().mean())
+
+
+def ulps_apart(a, b):
+    """Elementwise distance of a and b (both float32 or both bf16) in steps
+    of their dtype: 0 for equal values, +0 and -0 alike."""
+    import torch
+
+    bits, itype = {torch.bfloat16: (16, torch.int16),
+                   torch.float32: (32, torch.int32)}[a.dtype]
+
+    def ordered(t):
+        i = t.view(itype).long()
+        return torch.where(i < 0, -(i & ((1 << (bits - 1)) - 1)), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def conv_bound(x, w, b, want):
+    """The tolerance of the conv kernel against its plain version,
+    elementwise, for x in float32 or bf16 (unit roundoff u_d: 2^-24 or
+    2^-8).  The two differ in the order of the conv's float32 sum (and, on
+    the CPU, in whether each product is rounded first), which moves it by
+    at most 2 kw u (sum_k |w_k x_k|), u = 2^-24; its rounding to the dtype
+    and that of the bias added may then go either way, at most 4 u_d
+    (sum_k |w_k x_k| + |b|) in all; the SiLU's slope is at most 1.1; and
+    the two SiLUs' exponentials may differ in their last bits, which 4 ulps
+    of the output cover.  One ulp of the output says nothing where the sum
+    cancels the bias."""
+    import torch
+    import torch.nn.functional as F
+
+    S, kw = x.shape[1], w.shape[1]
+    u = 2.0 ** -24
+    u_d = 2.0 ** -8 if x.dtype == torch.bfloat16 else u
+    xpad = F.pad(x.double(), (0, 0, kw - 1, 0))
+    terms = sum((xpad[:, k:k + S] * w[:, k].double()).abs()
+                for k in range(kw)) + b.double().abs()
+    y = want.abs()
+    ulp = (torch.nextafter(y, torch.full_like(y, float("inf"))) - y).double()
+    return 1.1 * (2 * kw * u + 4 * u_d) * terms + 4 * ulp
+
+
+def events_ms(fn, calls: int = 20, repeats: int = 3) -> float:
+    """Device ms a call of ``fn``: CUDA events around ``calls`` calls back
+    to back, the median of ``repeats``, after a warm-up call."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def plain_conv(x, w, b):
+    """The Mamba mixer's conv as the parent's ``mamba_block`` computes it:
+    the pad, kw shifted copies stacked, the einsum, the bias, the SiLU, and
+    the tail copied out."""
+    import torch
+    import torch.nn.functional as F
+
+    S, kw = x.shape[1], w.shape[1]
+    xpad = F.pad(x, (0, 0, kw - 1, 0))
+    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=3)
+    conv = torch.einsum("bsdk,dk->bsd", shifted, w) + b
+    return F.silu(conv), xpad[:, -(kw - 1):].clone()
+
+
+def conv_times(dev) -> dict:
+    """One falcon-mamba-7b layer's conv at :data:`CONV_S`, bf16: the plain
+    path, the kernel where the tree has it, the bytes bound and the
+    library's figure."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    have = importlib.util.find_spec(
+        "repro_torch.kernels.causal_conv") is not None
+    if have:
+        from repro_torch.kernels.causal_conv import kernel as conv_kernel
+    out = {}
+    for S in CONV_S:
+        rng = np.random.default_rng(S)
+
+        def draw(*shape, scale=1.0):
+            return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+                np.float32)).to(dev, torch.bfloat16)
+
+        # x is the in-projection's first half, read in place as the model
+        # reads it
+        x = draw(1, S, 2 * CONV_D).chunk(2, -1)[0]
+        w, b = draw(CONV_D, CONV_KW, scale=0.5), draw(CONV_D, scale=0.1)
+        xt = x.transpose(1, 2).contiguous()
+        w3 = w[:, None, :].contiguous()
+        nbytes = 2 * (2 * S * CONV_D + (CONV_KW - 1) * CONV_D
+                      + CONV_KW * CONV_D + CONV_D)
+        row = {"shape": [1, S, CONV_D], "kw": CONV_KW, "dtype": "bf16",
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_MS,
+               "plain_ms": events_ms(lambda: plain_conv(x, w, b)),
+               "library_ms": events_ms(lambda: F.conv1d(
+                   xt, w3, b, padding=CONV_KW - 1, groups=CONV_D))}
+        if have:
+            def fn():
+                return conv_kernel.causal_conv(x, w, b)
+
+            y, tail = fn()
+            ry, rtail = plain_conv(x, w, b)
+            torch.cuda.synchronize()
+            ulps = ulps_apart(y, ry)
+            err = (y.double() - ry.double()).abs()
+            device_ms, floor_ms = profiled_ms(fn, "causal_conv_kernel")
+            row.update({"kernel_ms": device_ms, "launch_floor_ms": floor_ms,
+                        "bound_share": row["bound_ms"] / device_ms,
+                        "run": conv_kernel.run_length(
+                            1, S, CONV_D,
+                            torch.cuda.get_device_properties(
+                                dev).multi_processor_count),
+                        "max_ulps": int(ulps.max()),
+                        "differing_share": float((ulps > 0).float().mean()),
+                        "within_bound": bool((err <= conv_bound(
+                            x, w, b, ry)).all()),
+                        "tail_equal": bool(torch.equal(tail, rtail))})
+        out[f"S{S}"] = row
+    return out
 
 
 def ticket_times(dev) -> dict:
@@ -394,6 +545,8 @@ def child(tree: Path, parts) -> dict:
         row["moe"] = moe_times(dev)
     if "serve" in parts:
         row["serve"] = serve_times(dev)
+    if "conv" in parts:
+        row["conv"] = conv_times(dev)
     row["card_after"] = smi()
     row["ptxas"] = {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln
@@ -555,6 +708,10 @@ def main(argv=None) -> int:
         for rg in r.get("rglru", {}).values():
             assert rg["outside_one_ulp"] == 0.0 and rg["float32_equal"], (
                 r["label"], rg)
+        for cv in r.get("conv", {}).values():
+            assert cv.get("within_bound", True) and cv.get(
+                "differing_share", 0) <= 1e-5 and cv.get(
+                "tail_equal", True), (r["label"], cv)
     for label in ("parent", "change"):
         # a tree gives the same MoE outputs and tokens in both its children
         prints = {json.dumps([r.get("moe", {}).get(n, {}).get("y_sha256")
@@ -593,6 +750,10 @@ def main(argv=None) -> int:
             for k in ("decode_ms_per_step", "prefill_ms_per_request",
                       "tokens_per_s"):
                 row[f"serve_{k}"] = side(label, lambda r: r["serve"][k])
+        for S in CONV_S if "conv" in parts else ():
+            for k in ("plain_ms", "kernel_ms", "library_ms", "bound_ms"):
+                row[f"conv_S{S}_{k}"] = side(
+                    label, lambda r: r["conv"][f"S{S}"].get(k))
     lines.append(summary)
     print(json.dumps(summary), flush=True)
     if a.out is not None:

@@ -73,7 +73,7 @@ def host_us(fn, n: int = 2000) -> float:
 
 # the port's kernels, by the name of their __global__ function
 PORT_KERNELS = ("ticket_dispatch_kernel", "mamba_scan_kernel",
-                "rglru_scan_kernel")
+                "rglru_scan_kernel", "causal_conv_kernel")
 
 
 def _device_events(prof):

@@ -26,6 +26,9 @@
 struct alignas(8) float2 {
     float x, y;
 };
+struct alignas(8) uint2 {
+    unsigned x, y;
+};
 struct alignas(16) uint4 {
     unsigned x, y, z, w;
 };

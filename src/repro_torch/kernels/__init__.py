@@ -6,6 +6,9 @@ PyTorch version.
   (``csrc/ticket_dispatch.cu``).
 * mamba_scan — the Mamba-1 selective scan of every prefill, CUDA C++
   (``csrc/mamba_scan.cu``).
+* causal_conv — the Mamba-1 mixer's causal depthwise conv with its bias and
+  SiLU, in every prefill, CUDA C++ (``csrc/causal_conv.cu``); it replaces
+  no TPU kernel (the reference's conv is plain XLA).
 * rglru — the RG-LRU diagonal gated linear recurrence of every Griffin
   prefill, CUDA C++ (``csrc/rglru_scan.cu``).
 
@@ -15,6 +18,8 @@ pass (nor has any of the reference's), so a wrapper about to launch one
 on a floating input that requires grad raises (:func:`refuse_autograd`)
 rather than return outputs with no ``grad_fn``: training goes through the
 plain versions (``dispatch="torch"`` or ``"ticket"``, ``scan="torch"``).
+A Mamba layer's ``scan`` mode picks both of its kernels, the causal conv
+and the selective scan.
 """
 
 from __future__ import annotations

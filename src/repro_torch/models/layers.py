@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..kernels.causal_conv.ops import causal_conv
 from ..kernels.mamba_scan.ops import selective_scan
 from ..kernels.rglru.ops import rglru_scan
 from ..kernels.ticket_dispatch.ops import aux_loss, route_plan
@@ -682,21 +683,18 @@ def mamba_block(p, x, cfg: ArchConfig, scan: str = "auto"):
 
     The depthwise causal conv pads kw-1 zeros in front, and its tail (the
     decode state) is the last kw-1 rows of the padded input, so a prompt
-    shorter than kw-1 leaves zeros in it.  ``scan`` is the selective-scan
-    mode (:func:`repro_torch.kernels.mamba_scan.ops.selective_scan`:
-    ``"auto"`` the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors; ``"torch"`` the plain version); the batch is one launch where
-    the reference maps ``vmap`` over it.
+    shorter than kw-1 leaves zeros in it.  ``scan`` picks both of the
+    mixer's kernels, the causal conv with its bias and SiLU
+    (:func:`repro_torch.kernels.causal_conv.ops.causal_conv`) and the
+    selective scan (:func:`repro_torch.kernels.mamba_scan.ops
+    .selective_scan`): ``"auto"`` the CUDA kernels for CUDA tensors, the
+    plain versions for CPU tensors; ``"torch"`` the plain versions.  The
+    batch is one launch of each where the reference maps ``vmap`` over it.
     """
-    B, S, D = x.shape
-    kw = cfg.ssm_conv
     xin, z = _halves(x, p["in_proj"], "inner")                   # (B,S,di)
-
-    # depthwise causal conv1d, width ssm_conv: stacked shifted views
-    xpad = pad(xin, (0, 0, kw - 1, 0))
-    shifted = torch.stack([xpad[:, i:i + S] for i in range(kw)], dim=3)
-    conv = torch.einsum("bsdk,dk->bsd", shifted, p["conv_w"]) + p["conv_b"]
-    xin = _inner(F.silu(conv))
+    # depthwise causal conv1d of width ssm_conv, its bias and SiLU
+    xin, conv_tail = causal_conv(xin, p["conv_w"], p["conv_b"], mode=scan)
+    xin = _inner(xin)
 
     dt, Bm, Cm = _ssm_inputs(p, xin, cfg)
     y, h_final = selective_scan(xin, _inner(dt), _ssm_A(p, xin.dtype),
@@ -705,8 +703,6 @@ def mamba_block(p, x, cfg: ArchConfig, scan: str = "auto"):
                                 p["D_skip"], mode=scan)
     y = _inner(y) * F.silu(z)
     out = _residual(torch.einsum("bsk,kd->bsd", y, p["out_proj"]))
-    # the tail copied out: a view would keep the whole padded input alive
-    conv_tail = (xpad[:, S:] if kw == 1 else xpad[:, -(kw - 1):]).clone()
     return out, (h_final, conv_tail)
 
 

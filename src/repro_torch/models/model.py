@@ -359,8 +359,9 @@ def apply_layer(kind: str, p, x, cfg: ArchConfig, positions,
                 cache: bool = True):
     """One layer; returns (x, aux_loss, cache_entry).  ``dispatch`` is the
     MoE routing-plan mode (:func:`layers.moe`), ``scan`` the mode of
-    the recurrences' scans (the selective scan of :func:`layers.mamba_block`
-    and the RG-LRU scan of :func:`layers.rglru_block`).  With ``cache``
+    the recurrences' kernels (the causal conv and selective scan of
+    :func:`layers.mamba_block`, the RG-LRU scan of
+    :func:`layers.rglru_block`).  With ``cache``
     False an attention layer's entry is None (nothing of it is made).
     Under a mesh the layer's weights are gathered over their FSDP axis
     first (:func:`shard_utils.gathered`)."""
@@ -495,8 +496,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, dispatch: str = "auto",
     """Full forward pass over ``batch`` (``tokens`` (B, S), or the frontend's
     inputs, :func:`_embed_inputs`); returns (logits (B, S, V) float32,
     aux_loss, cache or None).  ``dispatch`` is the MoE routing-plan mode
-    (:func:`layers.moe`), ``scan`` the mode of the selective scan
-    (:func:`layers.mamba_block`) and of the RG-LRU scan
+    (:func:`layers.moe`), ``scan`` the mode of the causal conv and
+    selective scan (:func:`layers.mamba_block`) and of the RG-LRU scan
     (:func:`layers.rglru_block`).
 
     Where autograd records the pass (grad mode on and a period's input or

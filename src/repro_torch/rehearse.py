@@ -3,8 +3,9 @@
 The lockVM kernel's event loop (``csrc/lockvm_step.cuh``), the selective
 scan's and the RG-LRU scan's block functions (``csrc/mamba_scan_kernel.cuh``,
 ``csrc/rglru_scan_kernel.cuh``), the ticket kernel's group function
-(``csrc/ticket_dispatch_kernel.cuh``) and the MoE routing-plan kernel's
-(``csrc/moe_plan_kernel.cuh``) use only a few CUDA built-ins (warp
+(``csrc/ticket_dispatch_kernel.cuh``), the MoE routing-plan kernel's
+(``csrc/moe_plan_kernel.cuh``) and the causal conv's thread function
+(``csrc/causal_conv_kernel.cuh``) use only a few CUDA built-ins (warp
 shuffles, votes, matches and reductions, ``__syncwarp``, ``__syncthreads``,
 bit casts, ``expf``, rounded arithmetic, the bf16 cast).  ``csrc/rehearse/warp_emu.h``
 defines them for the host: each GPU thread becomes a ``std::thread``, and
@@ -49,6 +50,8 @@ PROGRAMS = {
     "moe_plan": ("moe_plan_host.cpp",
                  ("moe_plan_kernel.cuh", "ticket_dispatch_kernel.cuh"),
                  _build.plan_constants_header),
+    "causal_conv": ("causal_conv_host.cpp", ("causal_conv_kernel.cuh",),
+                    _build.conv_constants_header),
 }
 
 
@@ -259,3 +262,30 @@ def mamba_scan(x, dt, A, B, C, D_skip, h0=None
     wy = (ny * esize + 3) // 4
     return (_from_words(out[:wy], ny, x.dtype, (*lead, L, D)),
             _from_words(out[wy:], nh, x.dtype, (*lead, D, N)))
+
+
+def causal_conv(x, w, b, run: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The causal conv kernel's thread function on the host: the arguments
+    of :func:`repro_torch.kernels.causal_conv.kernel.causal_conv` (CPU
+    tensors; x may be a strided view), its (y, tail) in x's dtype.  ``run``
+    forces the positions a thread walks; None chooses as the wrapper does
+    for 132 SMs."""
+    from .kernels.causal_conv import kernel
+
+    kernel.check(x, w, b)
+    Bt, S, d = x.shape
+    kw = w.shape[1]
+    run = kernel.run_length(Bt, S, d) if run is None else run
+    sb, sr = x.stride(0), x.stride(1)
+    nx = (Bt - 1) * sb + (S - 1) * sr + d
+    span = x.as_strided((nx,), (1,))     # from x's first element
+    head = [Bt, S, d, kw, sb, sr, run, kernel.flags(x, w, b), nx]
+    words = [np.array(head, np.int32)]
+    words += [_raw_words(t) for t in (span, w, b)]
+    out = _run("causal_conv", words)
+    ny, nt = Bt * S * d, Bt * (kw - 1) * d
+    esize = x.element_size()
+    wy = (ny * esize + 3) // 4
+    return (_from_words(out[:wy], ny, x.dtype, (Bt, S, d)),
+            _from_words(out[wy:], nt, x.dtype, (Bt, kw - 1, d)))

@@ -17,10 +17,10 @@ tickets, slots, the slot→token map) is one launch of the CUDA routing-plan
 kernel (``dispatch="auto"`` on a GPU), the plain plan around the CUDA
 ticket kernel (``dispatch="ticket"``), or the plain plan
 (``dispatch="torch"``, or on the CPU).  ``scan`` selects both recurrences
-alike: every Mamba layer's prefill runs the selective scan, and every
-RG-LRU layer's prefill the RG-LRU scan, through its CUDA kernel
-(``scan="auto"`` on a GPU) or its plain version (``scan="torch"``, or on
-the CPU); decode launches neither.  A port of the reference's
+alike: every Mamba layer's prefill runs the causal conv and the selective
+scan, and every RG-LRU layer's prefill the RG-LRU scan, through their CUDA
+kernels (``scan="auto"`` on a GPU) or their plain versions
+(``scan="torch"``, or on the CPU); decode launches none.  A port of the reference's
 ``repro/serve/engine.py``.
 """
 

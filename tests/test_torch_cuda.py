@@ -37,7 +37,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import _build
+from repro_torch.bench.kernel_pair import conv_bound, ulps_apart
 from repro_torch.configs import get_config
+from repro_torch.kernels.causal_conv import causal_conv, causal_conv_ref
+from repro_torch.kernels.causal_conv import kernel as conv_kernel
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.kernels.mamba_scan import selective_scan, selective_scan_ref
 from repro_torch.kernels.rglru import kernel as rglru_kernel
@@ -336,6 +339,39 @@ def test_rglru_build_command_and_generated_header(tmp_path):
             assert re.search(rf"bf16 & {name}\b", src), name
 
 
+def test_conv_build_command_and_generated_header(tmp_path):
+    header = tmp_path / "h.h"
+    cmd = _build.build_command("causal_conv", tmp_path / "lib.so", header)
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "--use_fast_math" not in cmd    # expf, as PyTorch's SiLU's
+    csrc = _build.CSRC
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".h"))]
+    assert inputs == [str(header), str(csrc / "causal_conv.cu")]
+    srcs = _build.sources("causal_conv")
+    assert [p.name for p in srcs] == ["causal_conv.cu",
+                                      "causal_conv_kernel.cuh"]
+    for path in srcs:
+        assert path.is_file() and path.parent == csrc
+        for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert (csrc / inc).is_file(), inc
+    defs = {k: int(v) for k, v in re.findall(
+        r"#define (\w+) (-?\d+)", _build.conv_constants_header())}
+    assert defs == {"CC_THREADS": conv_kernel.THREADS,
+                    "CC_CHANNELS": conv_kernel.CHANNELS,
+                    "CC_UNROLL": conv_kernel.UNROLL,
+                    "CC_MIN_WIDTH": min(conv_kernel.WIDTHS),
+                    "CC_MAX_WIDTH": max(conv_kernel.WIDTHS),
+                    "CC_FLAG_BF16": 1, "CC_FLAG_VEC_X": 2,
+                    "CC_FLAG_VEC_P": 4, "CC_FLAG_VEC_Y": 8}
+    # one kernel a width, 2-4 (the launcher's switch)
+    assert conv_kernel.WIDTHS == (2, 3, 4)
+    src = "".join(p.read_text() for p in srcs)
+    for name in defs:
+        assert not re.search(rf"#define\s+{name}\b", src), name
+        if name.startswith("CC_FLAG_"):
+            assert re.search(rf"flags & {name}\b", src), name
+
+
 def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     """One nvcc per missing library, all started before any is waited on."""
     log = tmp_path / "log"
@@ -352,16 +388,16 @@ def test_libraries_build_in_parallel(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Path(path))
     names = list(_build.KERNELS)
     assert names == ["lockvm", "ticket_dispatch", "mamba_scan", "rglru_scan",
-                     "moe_plan"]
+                     "moe_plan", "causal_conv"]
     libs = _build.load_libraries(names)
-    assert log.read_text().split() == ["start"] * 5 + ["end"] * 5
+    assert log.read_text().split() == ["start"] * 6 + ["end"] * 6
     assert [p.name.split("-")[0] for p in libs] == [f"lib{n}" for n in names]
     assert all(p.exists() for p in libs)
     assert set(_build.build_logs) == set(names)
     # a second call builds nothing: the hashed libraries are reused
     monkeypatch.setattr(_build, "_libs", {})
     assert _build.load_libraries(["ticket_dispatch"]) == libs[1:2]
-    assert log.read_text().split().count("start") == 5
+    assert log.read_text().split().count("start") == 6
 
 
 def test_cell_state_bytes_fits_fig3_in_shared_memory():
@@ -788,8 +824,8 @@ def test_scan_kernel_matches_plain(cuda_device):
 def test_two_layer_falcon_mamba_serve_kernel_matches_plain_scan(
         cuda_device, monkeypatch):
     """Full-width falcon-mamba-7b cut to two layers, float32 on the card:
-    the tokens with the scan kernel equal the plain scan's, every prefill
-    launched the kernel once per layer and decode none."""
+    the tokens with the scan and conv kernels equal the plain versions',
+    every prefill launched each kernel once per layer and decode none."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2,
                               dtype="float32")
@@ -806,11 +842,12 @@ def test_two_layer_falcon_mamba_serve_kernel_matches_plain_scan(
             logits.append(lg.float().cpu()), real(lg, *a, **k))[1])
         eng = ServeEngine(cfg, params, lanes=4, max_ctx=160,
                           device=cuda_device, scan=scan)
-        before = scan_kernel.launches
+        before = (scan_kernel.launches, conv_kernel.launches)
         reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
         eng.run()
-        assert scan_kernel.launches - before == (
-            cfg.n_layers * eng.prefill_count if scan == "auto" else 0)
+        want = cfg.n_layers * eng.prefill_count if scan == "auto" else 0
+        assert scan_kernel.launches - before[0] == want
+        assert conv_kernel.launches - before[1] == want
         out[scan] = [r.tokens_out for r in reqs]
         first[scan] = [lg for lg in logits if lg.shape[0] == 1]
         assert all(len(t) == 8 for t in out[scan])
@@ -818,6 +855,77 @@ def test_two_layer_falcon_mamba_serve_kernel_matches_plain_scan(
     for a, b in zip(first["auto"], first["torch"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     assert out["auto"] == out["torch"]
+
+
+def _conv_cases():
+    """(name, (B, S, d, kw), dtype, strided): falcon-mamba-7b's prefill conv
+    (d_inner 8,192, width 4) at S 256 and 2,048 as the model reads it (the
+    in-projection's strided half) in bf16 and float32, and small cases:
+    prompts shorter than the tail, a partial group of channels, a batch,
+    a contiguous x, widths 2 and 3."""
+    return [("prefill_S256_bf16", (1, 256, 8192, 4), "bf16", True),
+            ("prefill_S2048_bf16", (1, 2048, 8192, 4), "bf16", True),
+            ("prefill_S256_f32", (1, 256, 8192, 4), "f32", True),
+            ("S1_d64", (1, 1, 64, 4), "bf16", True),
+            ("S2_d20_batch3", (3, 2, 20, 4), "f32", True),
+            ("S257_d20_batch3", (3, 257, 20, 4), "bf16", False),
+            ("S9_d24_kw2", (2, 9, 24, 2), "f32", False),
+            ("S33_d24_kw3", (2, 33, 24, 3), "bf16", True)]
+
+
+@pytest.mark.cuda
+def test_conv_kernel_matches_plain(cuda_device):
+    """The conv kernel against the plain version on the card: within
+    ``conv_bound`` (the einsum's GEMV may add in another order), in bf16
+    bit for bit but on at most 1e-5 of the elements, the tail equal; one
+    launch a call; the public op launches with ``mode="auto"`` and not with
+    ``"torch"``.  Its SiLU equals ``F.silu`` on every bf16 value."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for name, (B, S, d, kw), dtype, strided in _conv_cases():
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        full = torch.randn((B, S, 2 * d), generator=gen,
+                           device=cuda_device).to(dt)
+        x = full.chunk(2, -1)[0] if strided else full[..., :d].clone(
+            memory_format=torch.contiguous_format)
+        w = (0.5 * torch.randn((d, kw), generator=gen,
+                               device=cuda_device)).to(dt)
+        b = (0.1 * torch.randn((d,), generator=gen,
+                               device=cuda_device)).to(dt)
+        before = conv_kernel.launches
+        y, tail = conv_kernel.causal_conv(x, w, b)
+        torch.cuda.synchronize()
+        assert conv_kernel.launches == before + 1, name
+        ry, rtail = causal_conv_ref(x, w, b)
+        assert y.dtype == tail.dtype == dt, name
+        assert torch.equal(tail, rtail), name
+        err = (y.double() - ry.double()).abs()
+        assert bool((err <= conv_bound(x, w, b, ry)).all()), name
+        if dt == torch.bfloat16:
+            # the sums' order flips a rounding on a few elements at most
+            assert float((ulps_apart(y, ry) > 0).float().mean()) <= 1e-5, \
+                name
+        before = conv_kernel.launches
+        a = causal_conv(x, w, b)
+        p = causal_conv(x, w, b, mode="torch")
+        assert conv_kernel.launches == before + 1, name
+        assert torch.equal(a[0], y) and torch.equal(p[0], ry), name
+    # every bf16 value through the SiLU: with w = [0, .., 0, 1] and b = 0
+    # the conv is the last row, and y is F.silu of it (the earlier rows 0:
+    # an inf times a zero tap would be NaN)
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).to(cuda_device)
+    x = torch.zeros((1, 5, every.numel()), device=cuda_device,
+                    dtype=torch.bfloat16)
+    x[0, -1] = every
+    w = torch.zeros((every.numel(), 4), device=cuda_device,
+                    dtype=torch.bfloat16)
+    w[:, -1] = 1
+    y, _ = conv_kernel.causal_conv(x, w, torch.zeros_like(every))
+    want = torch.nn.functional.silu(x)
+    same = (y.view(torch.int16) == want.view(torch.int16)) | (
+        torch.isnan(y) & torch.isnan(want)) | ((y == 0) & (want == 0))
+    assert bool(same.all())
 
 
 # ---------------------------------------------------------------------------

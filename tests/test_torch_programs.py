@@ -191,8 +191,8 @@ def test_fault_schedules_match():
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch``, its subpackages (the lockVM, core — every module:
     the host locks, the KV stores, the distributed locks, the complexity
-    measure — configs, the ticket-dispatch, selective-scan and RG-LRU
-    kernels, models, serve, the span recorder, the runtime, data, optimizer, train-step and
+    measure — configs, the ticket-dispatch, selective-scan, causal-conv and
+    RG-LRU kernels, models, serve, the span recorder, the runtime, data, optimizer, train-step and
     checkpoint modules, both launchers, the launch tools — the shape cells,
     sharding rules and activation constraints, the fake-process-group
     mesh (made once), input specs, the dry run, the roofline and the
@@ -213,6 +213,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         import repro_torch.kernels.ticket_dispatch.kernel
         import repro_torch.kernels.mamba_scan.kernel
         import repro_torch.kernels.mamba_scan.ops
+        import repro_torch.kernels.causal_conv.kernel
+        import repro_torch.kernels.causal_conv.ops
+        import repro_torch.kernels.causal_conv.ref
         import repro_torch.kernels.rglru.kernel
         import repro_torch.kernels.rglru.ops
         import repro_torch.models.model, repro_torch.serve

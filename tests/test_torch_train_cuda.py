@@ -1,10 +1,11 @@
 """Training and the kernels: the gradient guard of the kernel wrappers, and
 a train step through the ticket kernel on the card.
 
-No kernel has a backward pass.  The routing-plan, selective-scan and RG-LRU
-wrappers raise when grad mode is on and a floating input requires grad,
-rather than return outputs with no ``grad_fn`` (the router, dt, B, C, a
-and b would train with zero gradient and no error).  On the CPU the guard
+No kernel has a backward pass.  The routing-plan, selective-scan, RG-LRU
+and causal-conv wrappers raise when grad mode is on and a floating input
+requires grad, rather than return outputs with no ``grad_fn`` (the router,
+dt, B, C, a, b and the conv's input and weights would train with zero
+gradient and no error).  On the CPU the guard
 is checked on ``meta`` tensors (the wrapper checks it before refusing a
 non-CUDA device); the ``cuda`` tests check it where the kernels launch,
 and that the same calls under ``torch.no_grad()`` (the serve paths) still
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config
 from repro_torch.data import synthetic_batch
+from repro_torch.kernels.causal_conv import kernel as conv_kernel
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 from repro_torch.kernels.rglru import kernel as rglru_kernel
 from repro_torch.kernels.ticket_dispatch import kernel as ticket_kernel
@@ -60,6 +62,12 @@ def _rglru_args(dev, grad, which):
     return a, b
 
 
+def _conv_args(dev, grad, which):
+    t = [torch.rand(s, device=dev) for s in ((2, 16, 8), (8, 4), (8,))]
+    t[which].requires_grad_(grad)
+    return t
+
+
 CALLS = {
     "routing-plan": lambda dev, grad, w: plan_kernel.moe_plan(
         *_plan_args(dev, grad)),
@@ -67,9 +75,11 @@ CALLS = {
         *_scan_args(dev, grad, w)),
     "RG-LRU": lambda dev, grad, w: rglru_kernel.rglru_scan(
         *_rglru_args(dev, grad, w)),
+    "causal-conv": lambda dev, grad, w: conv_kernel.causal_conv(
+        *_conv_args(dev, grad, w)),
 }
 CASES = [("routing-plan", 0)] + [("selective-scan", w) for w in range(6)] + \
-    [("RG-LRU", w) for w in range(2)]
+    [("RG-LRU", w) for w in range(2)] + [("causal-conv", w) for w in range(3)]
 
 
 @pytest.mark.parametrize("name,which", CASES)
@@ -96,7 +106,7 @@ def test_guard_leaves_the_cpu_plain_versions_differentiable():
 def test_guard_raises_on_the_card_and_serve_calls_still_launch(
         cuda_device, name, which):
     mod = {"routing-plan": plan_kernel, "selective-scan": scan_kernel,
-           "RG-LRU": rglru_kernel}[name]
+           "RG-LRU": rglru_kernel, "causal-conv": conv_kernel}[name]
     before = mod.launches
     with pytest.raises(RuntimeError, match=f"the {name} kernel has no "
                        "backward pass"):
